@@ -1,0 +1,63 @@
+"""ResNet-18 image encoder for the 18-channel proxy representation.
+
+Counterpart of hierarchicalprobabilistic3dhuman_tpu/models/resnet.py:17-127
+(BasicBlock, ResNet, resnet18): the torchvision layout with the first conv
+taking `in_channels` inputs, no final FC, global-average-pooled features
+out. Parameter names are the reference checkpoint's state-dict keys
+(conv1, bn1, layer{s}.{i}.conv1 ..., downsample.0/.1).
+"""
+
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_planes, planes, stride=1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = None
+        if stride != 1 or in_planes != planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_planes, planes, 1, stride, bias=False),
+                nn.BatchNorm2d(planes))
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """Encoder trunk: (B, C, H, W) -> (B, 512) pooled features."""
+
+    def __init__(self, layers=(2, 2, 2, 2), in_channels=18):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        in_planes = 64
+        for stage, num_blocks in enumerate(layers):
+            planes = 64 * 2 ** stage
+            blocks = []
+            for i in range(num_blocks):
+                stride = 2 if (stage > 0 and i == 0) else 1
+                blocks.append(BasicBlock(in_planes, planes, stride))
+                in_planes = planes
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+        self.num_stages = len(layers)
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        for stage in range(self.num_stages):
+            x = getattr(self, f"layer{stage + 1}")(x)
+        return x.mean(dim=(2, 3))
+
+
+def resnet18(in_channels=18):
+    return ResNet(layers=(2, 2, 2, 2), in_channels=in_channels)

@@ -1,0 +1,10 @@
+"""Predict with the PyTorch/CUDA port (cropped images, figures on).
+
+python run_predict_torch.py --image_dir demo/ --save_dir out/ --cropped_images
+python run_predict_torch.py ... --device cpu      # plain versions, no card
+"""
+
+from hierarchicalprobabilistic3dhuman_torch.cli.predict import main
+
+if __name__ == "__main__":
+    main()
