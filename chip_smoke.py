@@ -6,21 +6,30 @@
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA rasterizer from csrc/ and print the card's name and
      power limit;
-  2. hold the rasterizer kernel against its plain torch version on the card:
-     6 synthetic-SMPL meshes at 512^2, A=12, as the renderer packs them
-     (mask and depth bit-equal, attrs within 1e-5), and a hand-made scene of
-     shared edges and equal-depth ties (all outputs equal);
+  2. hold the rasterizer kernel against its plain torch version on the card
+     (mask and depth bit-equal, attrs within 1e-5), and the face_boxes kernel
+     that packs its fourth table against its own (boxes equal): 6 synthetic-SMPL meshes
+     at 512^2, A=12, as the renderer packs them (run twice: the outputs must
+     be identical); a hand-made scene of shared edges and equal-depth ties
+     (all outputs equal); a scene of slivers, off-screen faces and a face
+     larger than the image; the evaluation shape, 1 mesh at 256^2, A=3; and
+     the training shape, 72 meshes at 256^2, A=12, perspective;
   3. drive the main path through the user's entry point,
      `run_predict_torch.py --cropped_images` on 3 demo photos at full width
      (HRNet-W48, ResNet-18, 50 samples, 512^2 renders, random weights), with
-     the kernel's launch counter read around it (one launch per image), and
+     the kernels' launch counters read around it (one launch of each per
+     image), and
      check its figures and outputs; then check the predict core on the card
      against the same core on the CPU (plain rasterizer) on small inputs from
      3 seeds, with the kernel given the CPU's own tables, and report why
      colours differ where they do;
-  4. time the per-image predict, its stages, the kernel, its plain version
-     and the kernel's bound (the bytes it must move and the pixel-face tests
-     the function needs).
+  4. time the per-image predict and its stages; the kernel at the predict,
+     evaluation and training shapes beside its bound at each (the bytes it
+     must move and the pixel-face tests the function needs); the device
+     launches of one kernel call, counted from a profile; the rasterize step
+     (tables + kernel) and its parts on the host's clock and the card's, at
+     the predict and training shapes; and the kernel's plain version at the
+     predict shape.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -34,6 +43,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,12 +60,32 @@ PEAK_F32_OPS_PER_S = 67e12
 OPS_PER_TEST = 19
 # Geometry rows of the packed tables that the rasterizer reads (of 16).
 GEOM_ROWS_READ = 9
+# float32 operations per face of the face_boxes rule: denom 7, degenerate 2,
+# scale 3, rho 5, two plane errors 19 each and their sum, E 9, and per axis
+# min/max 4, margin 8, first and last 6, their NaN tests and clamps 6.
+OPS_PER_FACE_BOX = 113
 # Seeds of the predict core's card-vs-CPU check, and the least share of the
 # pixels covered on both devices whose colours agree to 1e-3. Over seeds
 # 0-11 on an H100 80GB HBM3 (700 W) the share was 0.999032-0.999861, 1 to 7
 # pixels of about 7,200; 0.998 allows twice the worst of those.
 CORE_SEEDS = (3, 4, 5)
 CORE_RGB_SHARE = 0.998
+
+
+class Scene(NamedTuple):
+    """A rasterizer input: screen vertices (B, V, 3), faces (F, 3), vertex
+    attributes (B, V, A), and the tables packed from them."""
+    screen: torch.Tensor
+    faces: torch.Tensor
+    vert_attrs: torch.Tensor
+    tables: tuple
+
+
+def make_scene(screen, faces, vert_attrs, hw):
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        pack_face_tables)
+    return Scene(screen, faces, vert_attrs,
+                 pack_face_tables(screen, faces, vert_attrs, hw))
 
 
 def log(msg):
@@ -92,11 +122,9 @@ def predict_scene(device, img_wh=512, seed=0):
     rotations + T-pose x2), on synthetic SMPL with a seeded random pose,
     packed by the renderer: A = 12 attributes.
 
-    :return: screen (6, 7829, 3), faces (13774, 3), packed tables
+    :return: Scene with screen (6, 7829, 3), faces (13774, 3)
     """
     from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        pack_face_tables)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         X_AXIS, ZERO_T, jet_colormap, six_views)
     from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
@@ -122,8 +150,57 @@ def predict_scene(device, img_wh=512, seed=0):
     screen, vert_attrs = renderer.raster_inputs(
         views["vertices"], views["cam_t"], views["orthographic_scale"],
         views["verts_features"])
-    return (screen, renderer.faces,
-            pack_face_tables(screen, renderer.faces, vert_attrs))
+    return make_scene(screen, renderer.faces, vert_attrs, (img_wh, img_wh))
+
+
+def eval_scene(device, seed=1):
+    """The evaluation shape: one posed synthetic-SMPL mesh at 256^2,
+    orthographic, A = 3 (the IUV attributes).
+
+    :return: Scene with screen (1, 7829, 3)
+    """
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    views = predict_scene(device, img_wh=256, seed=seed)
+    iuv = TexturedIUVRenderer(device, img_wh=256).verts_iuv[None]
+    return make_scene(views.screen[:1].contiguous(), views.faces, iuv,
+                      (256, 256))
+
+
+def train_scene(device, batch=72, img_wh=256, focal_length=300.0, seed=2):
+    """The training shape: `batch` synthetic-SMPL meshes with seeded poses,
+    shapes and camera translations at 256^2, A = 12, projected as the JAX
+    renderer's `_to_screen` does for projection_type="perspective":
+    x = f X / Z + wh / 2, z = Z.
+
+    :return: Scene with screen (batch, 7829, 3)
+    """
+    from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
+        X_AXIS, ZERO_T)
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
+        aa_rotate_translate_points)
+
+    rng = np.random.RandomState(seed)
+
+    def tensor(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    smpl = SMPL.synthetic(device)
+    verts = smpl(betas=tensor(rng.randn(batch, 10)),
+                 body_pose=tensor(rng.randn(batch, 69) * 0.3),
+                 global_orient=tensor(rng.randn(batch, 3) * 0.3))["vertices"]
+    verts = aa_rotate_translate_points(verts, X_AXIS, np.pi, ZERO_T)
+    cam_t = tensor([0.0, -0.2, 2.5] + rng.randn(batch, 3) * [0.05, 0.05, 0.25])
+    renderer = TexturedIUVRenderer(device, img_wh=img_wh)
+    _, vert_attrs = renderer.raster_inputs(
+        verts, cam_t, tensor(np.ones((batch, 2))), tensor(rng.rand(batch, 6890, 3)))
+    p = verts[:, renderer.verts_map, :] + cam_t[:, None, :]
+    z = p[..., 2:3]
+    screen = torch.cat([focal_length * p[..., :2] / z + img_wh / 2.0, z], dim=-1)
+    return make_scene(screen, renderer.faces, vert_attrs, (img_wh, img_wh))
 
 
 def triangle_scene(device):
@@ -131,8 +208,6 @@ def triangle_scene(device):
     on its diagonal into two faces at one depth, the same square again at the
     same depth with other attributes (ties -> lower index), a nearer face over
     part of it, and a face behind znear."""
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        pack_face_tables)
     verts = torch.tensor([[
         [8.5, 8.5, 2.0], [40.5, 8.5, 2.0], [40.5, 40.5, 2.0], [8.5, 40.5, 2.0],
         [8.5, 8.5, 2.0], [40.5, 8.5, 2.0], [40.5, 40.5, 2.0], [8.5, 40.5, 2.0],
@@ -144,7 +219,70 @@ def triangle_scene(device):
     attrs = torch.tensor([[[1.0, 0.0, 0.0]] * 4 + [[0.0, 1.0, 0.0]] * 4
                           + [[0.0, 0.0, 1.0]] * 3 + [[1.0, 1.0, 1.0]] * 3],
                          device=device)
-    return pack_face_tables(verts, faces, attrs)
+    return make_scene(verts, faces, attrs, (64, 64))
+
+
+SLIVER_HW = (200, 232)
+
+
+def sliver_scene(device, seed=4):
+    """Faces that strain the per-face boxes, on a 200 x 232 image, A = 3:
+    slivers whose 2 x area |denom| runs from 1e-8 to 1e-3, all but collinear
+    faces along lines of pixel centres (their rounded planes cover pixels
+    far from their vertices), long thin faces across many tiles, faces partly and wholly off the image, a face behind znear,
+    and one face larger than the image behind them all.
+
+    :return: Scene with screen (2, V, 3)
+    """
+    rng = np.random.RandomState(seed)
+    H, W = SLIVER_HW
+    tris = [[[-300.0, -200.0, 5.0], [900.0, -100.0, 5.0], [100.0, 1200.0, 6.0]]]
+    for denom in np.logspace(-8, -3, 36):
+        # Base of length `base` at a random place and angle, apex at height
+        # denom / base above a random point of it.
+        base = 10.0 ** rng.uniform(-3, 2.3)
+        centre = rng.rand(2) * [W, H] * (0.02 if rng.rand() < 0.3 else 1.0)
+        angle = rng.uniform(0, 2 * np.pi)
+        along = np.array([np.cos(angle), np.sin(angle)])
+        across = np.array([-along[1], along[0]])
+        pts = [centre, centre + base * along,
+               centre + rng.rand() * base * along + denom / base * across]
+        tris.append([[*q, rng.uniform(1.0, 4.0)] for q in pts])
+    lines = [(1, 1), (1, -1), (2, 1), (1, 2), (3, -1), (1, 0), (0, 1), (-2, 3)]
+    for _ in range(64):
+        # All but collinear, along a line through pixel centres: the third
+        # vertex sits on the segment's line, a few float32 steps off. denom
+        # is then rounding noise, and the rounded planes cover pixel centres
+        # on the line well beyond the vertices (84 px seen).
+        step = np.array(lines[rng.randint(len(lines))])
+        n = rng.randint(3, 40)
+        p0 = np.array([rng.randint(40, W - 40), rng.randint(40, H - 40)],
+                      np.float32) + np.float32(0.5)
+        p1 = (p0 + n * step).astype(np.float32)
+        p2 = (p0 + rng.randint(0, n + 1) * step).astype(np.float32)
+        axis, sign = rng.randint(2), rng.choice([-1.0, 1.0])
+        for _ in range(rng.randint(1, 9)):
+            p2[axis] = np.nextafter(p2[axis], np.float32(sign * np.inf))
+        tris.append([[*q, rng.uniform(1.0, 4.0)] for q in (p0, p1, p2)])
+    for _ in range(12):                       # long and thin, across tiles
+        a, b = rng.rand(2) * [W, H], rng.rand(2) * [W, H]
+        tris.append([[*a, rng.uniform(1.0, 4.0)], [*b, rng.uniform(1.0, 4.0)],
+                     [*(b + rng.randn(2) * 0.4), rng.uniform(1.0, 4.0)]])
+    for _ in range(12):                       # partly and wholly off-screen
+        centre = (rng.rand(2) * 2.0 - 0.5) * [W, H]
+        tris.append([[*(centre + rng.randn(2) * 40.0), rng.uniform(1.0, 4.0)]
+                     for _ in range(3)])
+    tris.append([[-50.0, -60.0, 2.0], [-10.0, -80.0, 2.0], [-30.0, -5.0, 2.0]])
+    tris.append([[20.0, 20.0, -1.0], [120.0, 30.0, -1.0], [60.0, 150.0, -1.0]])
+    one = np.asarray(tris, np.float32)                     # (F, 3, 3)
+    other = one.copy()                                     # a second mesh,
+    other[1:, :, :2] += rng.randn(len(one) - 1, 1, 2).astype(np.float32) * 3
+    verts = torch.as_tensor(np.stack([one, other]).reshape(2, -1, 3),
+                            device=device)
+    faces = torch.arange(3 * len(one), device=device).reshape(-1, 3)
+    attrs = torch.as_tensor(rng.rand(2, 3 * len(one), 3).astype(np.float32),
+                            device=device)
+    return make_scene(verts, faces, attrs, SLIVER_HW)
 
 
 def pixel_face_tests(screen, faces, hw):
@@ -167,57 +305,82 @@ def pixel_face_tests(screen, faces, hw):
     return int(tests[area2.abs() > 1e-9].sum())
 
 
-def tile_chunk_pairs(chunk_ranges, hw, tile=16):
-    """(16x16 tile, 128-face chunk) pairs whose boxes overlap: the pairs the
-    kernel's coarse culling leaves it to test (a diagnostic of the design,
-    not part of the bound)."""
-    H, W = hw
-    rows = torch.arange(0, H, tile, device=chunk_ranges.device)
-    cols = torch.arange(0, W, tile, device=chunk_ranges.device)
-    r = chunk_ranges[:, None, None, :, :].to(torch.int64)
-    overlap = ((r[..., 0] < rows[None, :, None, None] + tile)
-               & (r[..., 1] >= rows[None, :, None, None])
-               & (r[..., 2] < cols[None, None, :, None] + tile)
-               & (r[..., 3] >= cols[None, None, :, None]))
-    return int(overlap.sum())
+def box_tests(face_boxes):
+    """The pixel-face tests the kernel makes: the sum of the areas of the
+    per-face boxes (a diagnostic of the design, not part of the bound)."""
+    b = face_boxes.to(torch.int64)
+    return int((torch.clamp(b[..., 1] - b[..., 0] + 1, min=0)
+                * torch.clamp(b[..., 3] - b[..., 2] + 1, min=0)).sum())
 
 
 def phase_kernel_vs_plain(device):
+    """:return: the predict, eval and train scenes with their covered
+    pixels, the largest attrs difference and the largest box difference"""
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        face_boxes_cuda, face_boxes_plain, face_vertices,
         rasterize_packed_cuda, rasterize_packed_plain)
-    hw = (512, 512)
-    screen, faces, tables = predict_scene(device)
-    ka, kd, km = rasterize_packed_cuda(*tables, hw)
-    pa, pd, pm = rasterize_packed_plain(*tables, hw)
-    torch.cuda.synchronize()
-    mask_diff = int((km != pm).sum())
-    depth_equal = bool(torch.equal(kd, pd))
-    attr_err = float((ka - pa).abs().max())
-    log(f"[phase 2] predict scene {tuple(ka.shape)}: covered pixels "
-        f"{int(km.sum())}, mask differs at {mask_diff}, depth bit-equal "
-        f"{depth_equal}, attrs max abs diff {attr_err:.3e} (tol 1e-5)")
-    if mask_diff or not depth_equal or not attr_err <= 1e-5:
-        raise AssertionError("kernel disagrees with its plain version at the "
-                             "predict shape")
 
-    tri = triangle_scene(device)
-    ta, td, tm = rasterize_packed_cuda(*tri, (64, 64))
-    qa, qd, qm = rasterize_packed_plain(*tri, (64, 64))
+    def boxes_differ(name, scene):
+        """Largest difference of the face_boxes kernel's boxes from its plain
+        version's (they must be equal, and the scene's tables hold them)."""
+        fv, _ = face_vertices(scene.screen, scene.faces)
+        hw = scene.tables.image_hw
+        kb, pb = face_boxes_cuda(fv, hw), face_boxes_plain(fv, hw)
+        diff = int((kb - pb).abs().max())
+        log(f"[phase 2] {name} scene, face_boxes {tuple(kb.shape)}: max abs "
+            f"diff from the plain version {diff} (tol 0)")
+        if diff or not torch.equal(kb, scene.tables.face_boxes):
+            raise AssertionError(f"face_boxes kernel disagrees with its plain "
+                                 f"version on the {name} scene")
+        return diff
+
+    scenes = {}
+    worst = 0.0
+    worst_box = 0
+    for name, build in (("predict", predict_scene), ("sliver", sliver_scene),
+                        ("eval", eval_scene), ("train", train_scene)):
+        scene = build(device)
+        worst_box = max(worst_box, boxes_differ(name, scene))
+        ka, kd, km = rasterize_packed_cuda(scene.tables)
+        pa, pd, pm = rasterize_packed_plain(scene.tables)
+        torch.cuda.synchronize()
+        mask_diff = int((km != pm).sum())
+        depth_equal = bool(torch.equal(kd, pd))
+        attr_err = float((ka - pa).abs().max())
+        worst = max(worst, attr_err)
+        log(f"[phase 2] {name} scene {tuple(ka.shape)}: covered pixels "
+            f"{int(km.sum())}, mask differs at {mask_diff}, depth bit-equal "
+            f"{depth_equal}, attrs max abs diff {attr_err:.3e} (tol 1e-5)")
+        if mask_diff or not depth_equal or not attr_err <= 1e-5:
+            raise AssertionError(f"kernel disagrees with its plain version on "
+                                 f"the {name} scene")
+        if name == "predict":
+            again = rasterize_packed_cuda(scene.tables)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip((ka, kd, km), again))
+            log(f"[phase 2] predict scene run twice: outputs identical {same}")
+            if not same:
+                raise AssertionError("two runs on the same tables differ")
+        scenes[name] = (scene, int(km.sum()))
+
+    worst_box = max(worst_box, boxes_differ("triangle", triangle_scene(device)))
+    tri = triangle_scene(device).tables
+    ta, td, tm = rasterize_packed_cuda(tri)
+    qa, qd, qm = rasterize_packed_plain(tri)
     torch.cuda.synchronize()
     ok = torch.equal(tm, qm) and torch.equal(td, qd) and torch.equal(ta, qa)
     log(f"[phase 2] triangle scene: covered {int(tm.sum())} px, outputs equal "
         f"{ok}; tie winner attrs at (35, 10) {ta[0, 35, 10].tolist()}")
     if not ok or ta[0, 35, 10].tolist() != [1.0, 0.0, 0.0]:
         raise AssertionError("kernel disagrees on shared edges / depth ties")
-    scene = {"screen": screen, "faces": faces, "tables": tables,
-             "covered": int(km.sum())}
-    return scene, attr_err
+    del scenes["sliver"]
+    return scenes, worst, worst_box
 
 
 def phase_main_path(workdir):
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import main
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        rasterize_packed_cuda)
+        face_boxes_cuda, rasterize_packed_cuda)
     import cv2
 
     image_dir = os.path.join(workdir, "demo3")
@@ -227,18 +390,18 @@ def phase_main_path(workdir):
         shutil.copy(os.path.join(DEMO, f), image_dir)
     argv = ["--image_dir", image_dir, "--save_dir", save_dir,
             "--cropped_images", "--device", "cuda"]
-    rasterize_packed_cuda.launches = 0
+    rasterize_packed_cuda.launches = face_boxes_cuda.launches = 0
     t0 = time.perf_counter()
     results = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = rasterize_packed_cuda.launches
+    launches = {"rasterize": rasterize_packed_cuda.launches,
+                "face_boxes": face_boxes_cuda.launches}
     log(f"[phase 3] run_predict_torch.py on {len(DEMO_PHOTOS)} demo photos: "
-        f"{wall:.2f} s cold (model init included); rasterize "
-        f"launches {launches}")
-    if launches != len(DEMO_PHOTOS):
-        raise AssertionError(f"expected one kernel launch per image, got "
-                             f"{launches}")
+        f"{wall:.2f} s cold (model init included); kernel launches {launches}")
+    if set(launches.values()) != {len(DEMO_PHOTOS)}:
+        raise AssertionError(f"expected one launch of each kernel per image, "
+                             f"got {launches}")
     if sorted(results) != sorted(DEMO_PHOTOS):
         raise AssertionError(f"results for {sorted(results)}")
     for fname, res in results.items():
@@ -278,7 +441,8 @@ def core_render_tables(out, smpl, renderer):
     screen, vert_attrs = renderer.raster_inputs(
         views["vertices"], views["cam_t"], views["orthographic_scale"],
         views["verts_features"])
-    return screen, pack_face_tables(screen, renderer.faces, vert_attrs)
+    return screen, pack_face_tables(screen, renderer.faces, vert_attrs,
+                                    (renderer.img_wh, renderer.img_wh))
 
 
 def face_depths(geom, px, py, znear=1e-3):
@@ -410,16 +574,15 @@ def phase_core_cuda_vs_cpu():
         rgb_share = float((rgb_err[both] <= 1e-3).float().mean())
 
         # The kernel on the CPU's own tables against the CPU's render.
-        pa, pd, pm = rasterize_packed_plain(*tables["cpu"], hw)
-        ka, kd, km = rasterize_packed_cuda(
-            *[x.to("cuda") for x in tables["cpu"]], hw)
+        pa, pd, pm = rasterize_packed_plain(tables["cpu"])
+        ka, kd, km = rasterize_packed_cuda(tables["cpu"].to("cuda"))
         same_tables_ok = (torch.equal(km.cpu(), pm) and torch.equal(kd.cpu(), pd)
                           and float((ka.cpu() - pa).abs().max()) <= 1e-5)
         rebuilt_ok = torch.equal(pm, mask_b)
         why = explain_rgb_differences(
             both & (rgb_err > 1e-3),
             {"tables": tables["cuda"],
-             "attrs": rasterize_packed_cuda(*tables["cuda"], hw)[0].cpu()},
+             "attrs": rasterize_packed_cuda(tables["cuda"])[0].cpu()},
             {"tables": tables["cpu"], "attrs": pa})
         log(f"[phase 3] core cuda vs cpu, seed {seed}: max abs {errs} (tol "
             f"1e-4); screen vertices differ by at most (x, y, z) "
@@ -445,33 +608,146 @@ def phase_core_cuda_vs_cpu():
                                  "CPU")
 
 
-def profile_core(fn):
-    """One predict-core call under torch.profiler: device time, busy share
-    of the host-clock wall time, kernel launches, and the top device ops."""
+def device_profile(fn, calls=1):
+    """`calls` calls of fn() under torch.profiler, after a warm-up call.
+
+    The profiler can lose device events, above all from a window as short
+    as one kernel call, so nothing may fail on what its rows lack.
+
+    :return: the device's events (kernels, memsets, copies) as the
+        profiler's averaged rows, the sum of their times in ms, their count,
+        and the host-clock time of the calls in ms, ending in a sync
+    """
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"rows": rows, "wall_ms": wall_ms,
+            "device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "launches": sum(e.count for e in rows)}
+
+
+def profile_core(fn):
+    """One predict-core call under torch.profiler: device time, busy share
+    of the host-clock wall time, kernel launches, and the top device ops."""
+    p = device_profile(fn)
     log(f"[phase 4] profile of one predict core (profiler on): wall "
-        f"{wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
-        f"({device_ms / wall_ms:.1%}), {launches} kernel launches")
-    for e in top:
+        f"{p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+        f"({p['device_ms'] / p['wall_ms']:.1%}), {p['launches']} kernel launches")
+    for e in sorted(p["rows"], key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[phase 4]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": launches}
 
 
-def phase_timing(argv, scene):
+def rasterizer_device_launches(tables, calls=16, attempts=5):
+    """What one rasterize_packed_cuda call launches on the card, counted
+    from a profile of `calls` calls in a row: the keys' memset and the two
+    kernels. A profile counts only if it is whole, that is if it shows
+    `calls` launches of each kernel and a multiple of `calls` of every other
+    event; the profiler is asked up to `attempts` times for one.
+
+    :return: the device launches per call, or None where the profiler gave
+        no whole profile
+    """
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        rasterize_packed_cuda)
+    for attempt in range(1, attempts + 1):
+        p = device_profile(lambda: rasterize_packed_cuda(tables), calls=calls)
+        names = [f"{e.key[:40]} x{e.count}" for e in p["rows"]]
+        whole = (all(e.count % calls == 0 for e in p["rows"])
+                 and all(sum(e.count for e in p["rows"] if kernel in e.key)
+                         == calls for kernel in ("raster_faces", "resolve")))
+        log(f"[phase 4] {calls} rasterize_packed_cuda calls, profile "
+            f"{attempt}: {p['launches']} device launches {names}"
+            f"{'' if whole else ' (events lost, not counted)'}")
+        if whole:
+            return p["launches"] // calls
+    log(f"[phase 4] the profiler gave no whole profile of the rasterizer in "
+        f"{attempts} attempts: device_launches_per_call not measured")
+    return None
+
+
+def host_and_card_ms(fn, repeats=5, inner=20):
+    """Per call of fn(), on the host's clock, medians over `repeats` of
+    `inner` calls in a row from an idle card: the time the host takes to
+    enqueue it, and the time until the card has finished it."""
+    fn()
+    enqueue, finished = [], []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enqueue.append((t1 - t0) * 1e3 / inner)
+        finished.append((t2 - t0) * 1e3 / inner)
+    return statistics.median(enqueue), statistics.median(finished)
+
+
+def time_raster_step(name, scene):
+    """The rasterize step as the renderer runs it, tables and kernels, and
+    its parts: all four tables (pack_face_tables), the fourth alone from its
+    kernel and from its plain version, and the rasterizer on packed tables."""
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        face_boxes_cuda, face_boxes_plain, face_vertices, pack_face_tables,
+        rasterize, rasterize_packed_cuda)
+    inputs = (scene.screen, scene.faces, scene.vert_attrs)
+    hw = scene.tables.image_hw
+    fv, _ = face_vertices(scene.screen, scene.faces)
+    for part, fn in (
+            ("pack_face_tables", lambda: pack_face_tables(*inputs, hw)),
+            ("face_boxes_cuda", lambda: face_boxes_cuda(fv, hw)),
+            ("face_boxes_plain", lambda: face_boxes_plain(fv, hw)),
+            ("rasterize_packed_cuda", lambda: rasterize_packed_cuda(scene.tables)),
+            ("rasterize (tables + kernels)", lambda: rasterize(*inputs, hw))):
+        enqueue_ms, finished_ms = host_and_card_ms(fn)
+        p = device_profile(fn)
+        log(f"[phase 4] rasterize step {name}, {part}: host enqueues it in "
+            f"{enqueue_ms:.4f} ms, finished on the card after "
+            f"{finished_ms:.4f} ms; {p['launches']} device launches, device "
+            f"busy {p['device_ms']:.4f} ms")
+
+
+def time_face_boxes(scenes):
+    """The face_boxes kernel at the three shapes beside its bound (6
+    coordinates read and 4 indices written per face over the memory rate;
+    OPS_PER_FACE_BOX operations per face over the float32 rate), and its
+    plain version at the predict shape."""
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        face_boxes_cuda, face_boxes_plain, face_vertices)
+    out = {}
+    for name, (scene, _) in scenes.items():
+        fv, _ = face_vertices(scene.screen, scene.faces)
+        hw = scene.tables.image_hw
+        n_faces = fv.shape[0] * fv.shape[1]
+        ms = median_ms(lambda: face_boxes_cuda(fv, hw), inner=20)
+        bytes_ms = n_faces * (6 * 4 + 4 * 4) / PEAK_BYTES_PER_S * 1e3
+        ops_ms = n_faces * OPS_PER_FACE_BOX / PEAK_F32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"[phase 4] face_boxes {name}, {n_faces} faces: kernel {ms:.4f} "
+            f"ms; bound {bound_ms:.5f} ms (bytes {n_faces * 40} -> "
+            f"{bytes_ms:.5f} ms, operations -> {ops_ms:.5f} ms); kernel at "
+            f"{ms / bound_ms:.1f}x its bound")
+        out[name] = {"kernel_ms": ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        if name == "predict":
+            out["plain_ms"] = median_ms(lambda: face_boxes_plain(fv, hw), inner=20)
+            log(f"[phase 4] face_boxes predict: plain version "
+                f"{out['plain_ms']:.4f} ms")
+    return out
+
+
+def phase_timing(argv, scenes):
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
         build_parser, build_predictor)
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
@@ -519,41 +795,62 @@ def phase_timing(argv, scene):
     profile_core(lambda: core(kp["cropped_image"][None], kp["joints2D"][None],
                               kp["joints2Dconfs"][None], generator=generator))
 
-    hw = (512, 512)
-    tables = scene["tables"]
-    geom_t, face_attrs, chunk_ranges = tables
-    kernel_ms = median_ms(lambda: rasterize_packed_cuda(*tables, hw), inner=20)
-    plain_ms = median_ms(lambda: rasterize_packed_plain(*tables, hw))
-    # The bound: each input read once (the 9 geometry rows the function
-    # uses), each output written once; and the pixel-face tests the function
-    # needs (each face against the pixel centres in its bounding box) plus
-    # the interpolation of A attributes at each covered pixel.
-    B, _, Fp = geom_t.shape
-    A = face_attrs.shape[-1] // 3
-    bytes_moved = (4 * B * GEOM_ROWS_READ * Fp + 4 * face_attrs.numel()
-                   + 4 * chunk_ranges.numel() + B * hw[0] * hw[1] * (4 * A + 4 + 1))
-    tests = pixel_face_tests(scene["screen"], scene["faces"], hw)
-    ops = tests * OPS_PER_TEST + scene["covered"] * 5 * A
-    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    pairs = tile_chunk_pairs(chunk_ranges, hw)
     log(f"[phase 4] per-image predict: median {predict_ms:.2f} ms/image "
         f"(runs {[round(t, 2) for t in per_image]}); stages of one image: "
         f"HRNet keypoints {hrnet_ms:.2f} ms, predict core {core_ms:.2f} ms, "
         f"the rest (decode, figure, PNG write) ~"
         f"{predict_ms - hrnet_ms - core_ms:.2f} ms")
-    log(f"[phase 4] rasterize 6x512^2 A=12: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms (bytes {bytes_moved} -> "
-        f"{bytes_ms:.4f} ms; {tests} pixel-face tests x {OPS_PER_TEST} ops + "
-        f"{scene['covered']} covered px x {5 * A} ops -> {ops_ms:.4f} ms); "
-        f"kernel at {kernel_ms / bound_ms:.1f}x its bound")
-    log(f"[phase 4] rasterize design: {pairs} overlapping (16x16 tile, "
-        f"128-face chunk) pairs, i.e. {pairs * 256 * 128} pixel-face tests "
-        f"made, {pairs * 256 * 128 / tests:.1f}x the {tests} needed")
-    return {"predict_ms": predict_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+    out = {"predict_ms": predict_ms}
+    for name, (scene, covered) in scenes.items():
+        tables = scene.tables
+        H, W = tables.image_hw
+        kernel_ms = median_ms(lambda: rasterize_packed_cuda(tables), inner=20)
+        bound = raster_bound(scene, covered)
+        made = box_tests(tables.face_boxes)
+        B, A = tables.geom_t.shape[0], tables.face_attrs.shape[-1] // 3
+        log(f"[phase 4] rasterize {name} {B}x{H}x{W} A={A}: kernel "
+            f"{kernel_ms:.4f} ms; bound {bound['ms']:.4f} ms (bytes "
+            f"{bound['bytes']} -> {bound['bytes_ms']:.4f} ms; "
+            f"{bound['tests']} pixel-face tests x {OPS_PER_TEST} ops + "
+            f"{covered} covered px x {5 * A} ops -> "
+            f"{bound['ops_ms']:.4f} ms); kernel at "
+            f"{kernel_ms / bound['ms']:.1f}x its bound; the per-face boxes "
+            f"ask for {made} tests, {made / bound['tests']:.3f}x the needed")
+        out[name] = {"kernel_ms": kernel_ms, "bound_ms": bound["ms"],
+                     "bound_by": bound["by"]}
+    predict = scenes["predict"][0]
+    out["device_launches_per_call"] = rasterizer_device_launches(predict.tables)
+    for name in ("predict", "train"):
+        time_raster_step(name, scenes[name][0])
+    out["face_boxes"] = time_face_boxes(scenes)
+    out["plain_ms"] = median_ms(lambda: rasterize_packed_plain(predict.tables))
+    log(f"[phase 4] rasterize predict: plain version {out['plain_ms']:.2f} ms")
+    return out
+
+
+def raster_bound(scene, covered):
+    """The least time the card could take for one rasterizer call: each
+    input read once (the 9 geometry rows the function uses and the
+    attributes), each output written once, over the memory rate; and the
+    pixel-face tests the function needs (each face against the pixel centres
+    in its vertices' bounding box) plus the interpolation of A attributes at
+    each of the `covered` pixels, over the float32 rate. The kernel's own
+    scratch (the keys, the per-face boxes) is not counted, so the bound does
+    not move with the design."""
+    geom_t, face_attrs = scene.tables.geom_t, scene.tables.face_attrs
+    H, W = scene.tables.image_hw
+    B, _, Fp = geom_t.shape
+    A = face_attrs.shape[-1] // 3
+    bytes_moved = (4 * B * GEOM_ROWS_READ * Fp + 4 * face_attrs.numel()
+                   + B * H * W * (4 * A + 4 + 1))
+    tests = pixel_face_tests(scene.screen, scene.faces, (H, W))
+    ops = tests * OPS_PER_TEST + covered * 5 * A
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+    return {"ms": max(bytes_ms, ops_ms), "bytes": bytes_moved, "tests": tests,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def main():
@@ -576,24 +873,46 @@ def main():
     card = card_line()
     log(card)
 
-    scene, attr_err = phase_kernel_vs_plain(device)
+    scenes, attr_err, box_err = phase_kernel_vs_plain(device)
     with tempfile.TemporaryDirectory() as workdir:
         argv, launches = phase_main_path(workdir)
         phase_core_cuda_vs_cpu()
-        timing = phase_timing(argv, scene)
+        timing = phase_timing(argv, scenes)
 
+    boxes = timing["face_boxes"]
     kernels = [{
         "name": "rasterize",
         "route": "cuda",
         "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:240",
-        "launches": launches,
+        "launches": launches["rasterize"],
         "max_abs_err": attr_err,
-        "ms": timing["kernel_ms"],
+        "ms": timing["predict"]["kernel_ms"],
         "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
+        "bound_ms": timing["predict"]["bound_ms"],
+        "bound_by": timing["predict"]["bound_by"],
         "library_ms": None,
+        "ms_eval": timing["eval"]["kernel_ms"],
+        "bound_ms_eval": timing["eval"]["bound_ms"],
+        "ms_train": timing["train"]["kernel_ms"],
+        "bound_ms_train": timing["train"]["bound_ms"],
+        "device_launches_per_call": timing["device_launches_per_call"],
+    }, {
+        "name": "face_boxes",
+        "route": "cuda",
+        "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
+        "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:97",
+        "launches": launches["face_boxes"],
+        "max_abs_err": box_err,
+        "ms": boxes["predict"]["kernel_ms"],
+        "plain_ms": boxes["plain_ms"],
+        "bound_ms": boxes["predict"]["bound_ms"],
+        "bound_by": boxes["predict"]["bound_by"],
+        "library_ms": None,
+        "ms_eval": boxes["eval"]["kernel_ms"],
+        "bound_ms_eval": boxes["eval"]["bound_ms"],
+        "ms_train": boxes["train"]["kernel_ms"],
+        "bound_ms_train": boxes["train"]["bound_ms"],
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
     print(json.dumps({"kernels": kernels}))

@@ -1,147 +1,386 @@
 // Z-buffered barycentric attribute rasterizer for Hopper (sm_90a).
 //
 // Replaces hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py::
-// _raster_kernel (:240-345). Reads the packed tables of
-// ops/rasterizer_cuda.py::pack_face_tables:
-//   geom   (B, 16, Fp) f32  rows [wa0 wb0 wc0 wa1 wb1 wc1 za zb zc 0...]
-//   fattr  (B, Fp, 3A) f32  [attr_v0 | attr_v1 | attr_v2]
-//   ranges (B, NC, 4) i32   per 128-face chunk [rmin rmax cmin cmax], inclusive
-// and writes attrs (B, H, W, A), depth (B, H, W) (+inf where empty) and
-// mask (B, H, W) (1 byte, torch.bool).
+// _raster_kernel (:240-345). It computes the same function by another
+// algorithm: not the TPU's loop over (pixel tile, face chunk) pairs, but a
+// scatter over faces into a 64-bit key buffer and a resolve pass over pixels.
 //
-// For each pixel centre (c + 0.5, r + 0.5) and face: w0, w1 from the
-// barycentric-ratio rows, w2 = 1 - w0 - w1, z from the depth plane. The face
-// covers the pixel iff w0, w1, w2 >= 0 and z > znear; the nearest covering
-// face wins, ties to the lowest face index.
+// Tables read (ops/rasterizer_cuda.py::pack_face_tables):
+//   geom  (B, 16, Fp) f32  rows [wa0 wb0 wc0 wa1 wb1 wc1 za zb zc 0...]
+//   fattr (B, Fp, 3A) f32  [attr_v0 | attr_v1 | attr_v2]
+//   boxes (B, Fp, 4) i32   per face [rmin rmax cmin cmax] of pixel indices,
+//                          inclusive; every pixel the face can cover
+// Written: attrs (B, H, W, A), depth (B, H, W) (+inf where empty), mask
+// (B, H, W) (1 byte, torch.bool); zkey (B, H, W) u64 is scratch.
 //
-// What bounds it on an H100: at the predict shape (6 meshes x 512^2, A=12)
-// it must write 6*512^2*(12*4 + 4 + 1) B ~ 83 MB and read ~17 MB of tables,
-// ~30 us at 3.35 TB/s. The pair work is larger: only (16x16 tile, 128-face
-// chunk) pairs whose boxes overlap are evaluated, 19 float32 operations per
-// (pixel, face) pair; the predict scene of chip_smoke.py has ~20k such pairs,
-// 12.6 G operations, ~0.19 ms at the card's 67 TFLOP/s float32 rate. So the
-// kernel is bound by its operations, and every culled pair counts.
+// The function. For a pixel centre (c + 0.5, r + 0.5) and a face: w0, w1
+// from the barycentric-ratio rows, w2 = 1 - w0 - w1, z from the depth plane.
+// The face covers the pixel iff w0, w1, w2 >= 0 and z > znear (and z < 1e30,
+// the plain version's "empty" depth); the nearest covering face wins, ties
+// to the lowest face index.
 //
-// What the design does about it (simple first; speed comes later):
-//   * grid (tiles of 16x16, B), block 256 threads, one pixel per thread;
-//   * the block walks the chunks in ascending order and skips every chunk
-//     whose box misses the tile (the same inclusive tests as
-//     build_tile_chunk_lists :221-224), so the TPU's compacted work lists
-//     are not needed;
-//   * a surviving chunk's 9 x 128 geometry floats (4.6 KB) are staged in
-//     shared memory and read by all 256 threads as broadcasts;
-//   * each thread keeps (best z, best face) in registers with a strict
-//     z < best test over ascending faces, which reproduces
-//     lowest-index-wins; the attributes are interpolated once, for the
-//     winner only, so the per-pair loop touches no attribute memory.
+// The design. When the tables are packed, one launch of face_boxes (at the
+// end of this file) computes each face's box. A rasterizer call is then
+// three launches on one stream:
+//   1. cudaMemsetAsync sets every key to all ones ("empty").
+//   2. raster_faces. A covered (pixel, face) pair makes the key
+//      (bits of z) << 32 | face and takes atomicMin on the pixel's key. z is
+//      finite and > znear > 0, so its bits order as an unsigned integer, and
+//      the unsigned minimum is "nearest z, then lowest face". The minimum is
+//      commutative: faces may arrive in any order from any block, and two
+//      runs give identical bits. The atomic's result is unused, so it is a
+//      fire-and-forget reduction that the L2 resolves. A block takes 32
+//      faces. Its first warp classifies them, one lane a face: it clips the
+//      box and either lists the face as small (at most kSmallBox pixels) or
+//      cuts its box into row strips of about kStripPixels pixels, queued in
+//      shared memory. Then 8 lanes take each small face, and the block's 8
+//      warps share the strips, 32 lanes a strip, so one large face does not
+//      hold a warp while seven idle. The grid's z axis cuts the image into
+//      bands of at most 65,536 pixels and a block tests its faces inside
+//      its band only, so a face whose box is the whole of a 512^2 image is
+//      shared by four blocks. The pixel loop is carried by two floats and
+//      one pixel index, with no multiply on the covered branch.
+//   3. resolve. One thread per (pixel, 4 attributes) (per attribute when
+//      A % 4 != 0) decodes depth and face from the key, evaluates w0, w1, w2
+//      again and interpolates. Consecutive threads write consecutive 16 (or
+//      4) bytes, with streaming stores: the outputs are not read again here.
 //
-// Float arithmetic: nvcc would contract a*b + c into an FMA and move
+// What bounds it on an H100: bytes. At the predict shape (6 meshes x 512^2,
+// A = 12) the function reads 15 MB of tables and writes 83 MB of outputs,
+// 0.029 ms at 3.35 TB/s, against 0.008 ms for the float32 operations of the
+// pixel-face tests it needs. The 12.6 MB of keys (37.7 MB at 72 x 256^2)
+// stay in the 50 MB L2, so the key traffic adds no HBM bytes. What the
+// kernel actually spends its time on is executing the tests (measured with
+// the atomics switched off, the scatter pass is about 10% shorter; PERF.md).
+//
+// Tensor cores are not used. A plane evaluation is a K = 3 product, but the
+// contract is float32 with a fixed rounding order; TF32 (10-bit mantissa)
+// would move coverage at triangle edges.
+//
+// The rounding rule. nvcc would contract a*b + c into an FMA and move
 // coverage at triangle edges. Every plane evaluation and the interpolation
-// use __fmul_rn / __fadd_rn in the association order of the plain version
-// (ops/rasterizer.py): ((px*wa + py*wb) + wc), (1 - w0) - w1 and
-// (w0*a0 + w1*a1) + w2*a2; the build keeps nvcc's default --fmad=true.
+// use __fmul_rn / __fadd_rn / __fsub_rn in the association order of the
+// plain version (ops/rasterizer.py): ((px*wa + py*wb) + wc), (1 - w0) - w1
+// and (w0*a0 + w1*a1) + w2*a2, so mask and depth equal the plain version's
+// bit for bit; the build keeps nvcc's default --fmad=true.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kFaceChunk = 128;
+typedef unsigned long long u64;
+
 constexpr int kGeomRows = 16;
-constexpr int kGeomUsed = 9;
 constexpr float kInf = 1e30f;
+constexpr u64 kEmpty = ~0ull;
+constexpr int kThreads = 256;
+constexpr int kBlockFaces = 32;     // faces per block, one lane each to classify
+constexpr int kFaceLanes = 8;       // lanes that test one small face
+constexpr int kSmallBox = 128;      // pixels of a box that counts as small
+constexpr int kStripPixels = 512;   // pixels of a row strip, one warp's item
+constexpr int kMaxStrips = 16;      // strips per face and band
+constexpr int kBandPixels = 65536;  // pixels of a band of image rows
+
+struct Planes {
+  float a0, b0, c0, a1, b1, c1, za, zb, zc;
+};
 
 __device__ __forceinline__ float plane(float px, float py, float a, float b,
                                        float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(px, a), __fmul_rn(py, b)), c);
 }
 
-__global__ void __launch_bounds__(kTile * kTile)
-raster_kernel(const float* __restrict__ geom, const float* __restrict__ fattr,
-              const int4* __restrict__ ranges, float* __restrict__ out_attrs,
-              float* __restrict__ out_depth, unsigned char* __restrict__ out_mask,
-              int H, int W, int Fp, int A, float znear) {
-  __shared__ float sg[kGeomUsed][kFaceChunk];
+__device__ __forceinline__ Planes load_planes(const float* __restrict__ g,
+                                              int Fp, int f) {
+  Planes p;
+  p.a0 = __ldg(g + f);
+  p.b0 = __ldg(g + (size_t)Fp + f);
+  p.c0 = __ldg(g + (size_t)2 * Fp + f);
+  p.a1 = __ldg(g + (size_t)3 * Fp + f);
+  p.b1 = __ldg(g + (size_t)4 * Fp + f);
+  p.c1 = __ldg(g + (size_t)5 * Fp + f);
+  p.za = __ldg(g + (size_t)6 * Fp + f);
+  p.zb = __ldg(g + (size_t)7 * Fp + f);
+  p.zc = __ldg(g + (size_t)8 * Fp + f);
+  return p;
+}
 
-  const int b = blockIdx.y;
-  const int tiles_x = (W + kTile - 1) / kTile;
-  const int row0 = (blockIdx.x / tiles_x) * kTile;
-  const int col0 = (blockIdx.x % tiles_x) * kTile;
-  const int r = row0 + threadIdx.x / kTile;
-  const int c = col0 + threadIdx.x % kTile;
-  const float px = (float)c + 0.5f;
-  const float py = (float)r + 0.5f;
-
-  const int n_chunks = Fp / kFaceChunk;
-  const float* g = geom + (size_t)b * kGeomRows * Fp;
-  const int4* rg = ranges + (size_t)b * n_chunks;
-
-  float best = kInf;
-  int best_face = -1;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int4 box = rg[ch];  // rmin, rmax, cmin, cmax; same for the block
-    if (!(box.x < row0 + kTile && box.y >= row0 &&
-          box.z < col0 + kTile && box.w >= col0)) {
-      continue;
+// LANES threads (this one is `lane`) test `face` at the pixel centres of
+// rows r0..r1, columns c0..c1 of the image whose keys start at zk. The
+// lanes walk the box in row-major order, LANES pixels a step.
+template <int LANES>
+__device__ __forceinline__ void raster_box(const Planes& p, unsigned face,
+                                           int r0, int r1, int c0, int c1,
+                                           int lane, u64* __restrict__ zk,
+                                           int W, float znear) {
+  const int bw = c1 - c0 + 1;
+  const int dr = LANES / bw, dc = LANES % bw;
+  const int lr = lane / bw, lc = lane - lr * bw;
+  // Pixel centres are k + 0.5 with small k: these float sums are exact.
+  float px = (float)(c0 + lc) + 0.5f, py = (float)(r0 + lr) + 0.5f;
+  int idx = (r0 + lr) * W + c0 + lc;
+  const float dpx = (float)dc, dpy = (float)dr, fbw = (float)bw;
+  const float px_end = (float)c1 + 1.0f, py_end = (float)r1 + 1.0f;
+  const int didx = dr * W + dc, wrap = W - bw;
+  while (py < py_end) {
+    const float w0 = plane(px, py, p.a0, p.b0, p.c0);
+    const float w1 = plane(px, py, p.a1, p.b1, p.c1);
+    const float w2 = __fsub_rn(__fsub_rn(1.0f, w0), w1);
+    const float z = plane(px, py, p.za, p.zb, p.zc);
+    if ((w0 >= 0.0f) & (w1 >= 0.0f) & (w2 >= 0.0f) & (z > znear) & (z < kInf)) {
+      atomicMin(zk + idx, ((u64)__float_as_uint(z) << 32) | face);
     }
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = threadIdx.x; i < kGeomUsed * kFaceChunk; i += blockDim.x) {
-      const int row = i / kFaceChunk;
-      const int f = i % kFaceChunk;
-      sg[row][f] = g[(size_t)row * Fp + ch * kFaceChunk + f];
-    }
-    __syncthreads();
-    for (int f = 0; f < kFaceChunk; ++f) {
-      const float w0 = plane(px, py, sg[0][f], sg[1][f], sg[2][f]);
-      const float w1 = plane(px, py, sg[3][f], sg[4][f], sg[5][f]);
-      const float w2 = __fsub_rn(__fsub_rn(1.0f, w0), w1);
-      const float z = plane(px, py, sg[6][f], sg[7][f], sg[8][f]);
-      const bool covered = (w0 >= 0.0f) & (w1 >= 0.0f) & (w2 >= 0.0f) &
-                           (z > znear);
-      if (covered && z < best) {
-        best = z;
-        best_face = ch * kFaceChunk + f;
-      }
-    }
+    px += dpx; py += dpy; idx += didx;
+    if (px > px_end) { px -= fbw; py += 1.0f; idx += wrap; }
   }
-  if (r >= H || c >= W) return;
+}
 
+// The face's box cut to the image and to this block's band of rows.
+__device__ __forceinline__ bool clip_box(int4 box, int H, int W, int band_rows,
+                                         int& r0, int& r1, int& c0, int& c1) {
+  const int lo = blockIdx.z * band_rows;
+  r0 = max(box.x, lo); r1 = min(box.y, min(H, lo + band_rows) - 1);
+  c0 = max(box.z, 0); c1 = min(box.w, W - 1);
+  return r0 <= r1 && c0 <= c1;
+}
+
+// Grid (ceil(Fp / 32), B, bands of rows). Held to 40 registers, 6 blocks an
+// SM: measured faster than the 46 registers and 5 blocks nvcc takes unasked.
+__global__ void __launch_bounds__(kThreads, 6)
+raster_faces(const float* __restrict__ geom, const int4* __restrict__ boxes,
+             u64* __restrict__ zkey, int H, int W, int Fp, int band_rows,
+             float znear) {
+  __shared__ int s_small_count, s_strip_count;
+  __shared__ int s_small[kBlockFaces];                  // small faces, local ids
+  __shared__ int4 s_box[kBlockFaces];                   // clipped r0, r1, c0, c1
+  __shared__ int4 s_strips[kBlockFaces * kMaxStrips];   // local face, r0, r1, -
+  const int b = blockIdx.y;
+  const float* g = geom + (size_t)b * kGeomRows * Fp;
+  u64* zk = zkey + (size_t)b * H * W;
+  // Opaque to the compiler, which otherwise recomputes this base at every
+  // covered pixel.
+  asm volatile("" : "+l"(zk));
+  const int f0 = blockIdx.x * kBlockFaces;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    int r0 = 0, r1 = -1, c0 = 0, c1 = -1;
+    const bool valid = f0 + lane < Fp &&
+        clip_box(__ldg(boxes + (size_t)b * Fp + f0 + lane), H, W, band_rows,
+                 r0, r1, c0, c1);
+    s_box[lane] = make_int4(r0, r1, c0, c1);
+    const int bw = c1 - c0 + 1, bh = r1 - r0 + 1;
+    const bool small = valid && bw * bh <= kSmallBox;
+    const unsigned small_mask = __ballot_sync(0xffffffffu, small);
+    if (small) s_small[__popc(small_mask & ((1u << lane) - 1u))] = lane;
+    int rows = 1, n = 0;
+    if (valid && !small) {
+      rows = max(max(1, kStripPixels / bw), (bh + kMaxStrips - 1) / kMaxStrips);
+      n = (bh + rows - 1) / rows;
+    }
+    int end = n;                    // inclusive prefix sum of the strip counts
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, end, d);
+      if (lane >= d) end += up;
+    }
+    for (int i = 0; i < n; ++i) {
+      s_strips[end - n + i] = make_int4(lane, r0 + i * rows,
+                                        min(r1, r0 + (i + 1) * rows - 1), 0);
+    }
+    if (lane == 31) { s_strip_count = end; s_small_count = __popc(small_mask); }
+  }
+  __syncthreads();
+  const int group = threadIdx.x / kFaceLanes;           // 32 groups of 8 lanes
+  if (group < s_small_count) {
+    const int fl = s_small[group];
+    const int4 box = s_box[fl];
+    raster_box<kFaceLanes>(load_planes(g, Fp, f0 + fl), (unsigned)(f0 + fl),
+                           box.x, box.y, box.z, box.w,
+                           threadIdx.x % kFaceLanes, zk, W, znear);
+  }
+  const int count = s_strip_count;
+  for (int i = warp; i < count; i += kThreads / 32) {
+    const int4 strip = s_strips[i];
+    const int4 box = s_box[strip.x];
+    raster_box<32>(load_planes(g, Fp, f0 + strip.x), (unsigned)(f0 + strip.x),
+                   strip.y, strip.z, box.z, box.w, lane, zk, W, znear);
+  }
+}
+
+__device__ __forceinline__ float interpolate(float w0, float w1, float w2,
+                                             float a0, float a1, float a2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(w0, a0), __fmul_rn(w1, a1)),
+                   __fmul_rn(w2, a2));
+}
+
+// One thread per (pixel, VEC attributes); grid (ceil(W * A / VEC / 256), H, B).
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+resolve(const u64* __restrict__ zkey, const float* __restrict__ geom,
+        const float* __restrict__ fattr, float* __restrict__ out_attrs,
+        float* __restrict__ out_depth, unsigned char* __restrict__ out_mask,
+        int H, int W, int Fp, int A) {
+  const int Q = A / VEC;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= W * Q) return;
+  const int c = t / Q, q = t - c * Q;
+  const int r = blockIdx.y, b = blockIdx.z;
   const size_t pix = ((size_t)b * H + r) * W + c;
-  float* out = out_attrs + pix * A;
-  if (best_face < 0) {
-    for (int a = 0; a < A; ++a) out[a] = 0.0f;
-    out_depth[pix] = INFINITY;
-    out_mask[pix] = 0;
+  const u64 key = __ldcs(zkey + pix);
+  float* out = out_attrs + pix * A + q * VEC;
+  if (key == kEmpty) {
+    if (VEC == 4) {
+      __stcs(reinterpret_cast<float4*>(out), make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    } else {
+      __stcs(out, 0.0f);
+    }
+    if (q == 0) { out_depth[pix] = INFINITY; out_mask[pix] = 0; }
     return;
   }
-  const float w0 = plane(px, py, g[best_face], g[(size_t)Fp + best_face],
-                         g[(size_t)2 * Fp + best_face]);
-  const float w1 = plane(px, py, g[(size_t)3 * Fp + best_face],
-                         g[(size_t)4 * Fp + best_face],
-                         g[(size_t)5 * Fp + best_face]);
+  const unsigned face = (unsigned)key;
+  const Planes p = load_planes(geom + (size_t)b * kGeomRows * Fp, Fp, face);
+  const float px = (float)c + 0.5f, py = (float)r + 0.5f;
+  const float w0 = plane(px, py, p.a0, p.b0, p.c0);
+  const float w1 = plane(px, py, p.a1, p.b1, p.c1);
   const float w2 = __fsub_rn(__fsub_rn(1.0f, w0), w1);
-  const float* fa = fattr + ((size_t)b * Fp + best_face) * 3 * A;
-  for (int a = 0; a < A; ++a) {
-    out[a] = __fadd_rn(__fadd_rn(__fmul_rn(w0, fa[a]), __fmul_rn(w1, fa[A + a])),
-                       __fmul_rn(w2, fa[2 * A + a]));
+  const float* fa = fattr + ((size_t)b * Fp + face) * 3 * A + q * VEC;
+  if (VEC == 4) {
+    const float4 a0 = __ldg(reinterpret_cast<const float4*>(fa));
+    const float4 a1 = __ldg(reinterpret_cast<const float4*>(fa + A));
+    const float4 a2 = __ldg(reinterpret_cast<const float4*>(fa + 2 * A));
+    __stcs(reinterpret_cast<float4*>(out),
+           make_float4(interpolate(w0, w1, w2, a0.x, a1.x, a2.x),
+                       interpolate(w0, w1, w2, a0.y, a1.y, a2.y),
+                       interpolate(w0, w1, w2, a0.z, a1.z, a2.z),
+                       interpolate(w0, w1, w2, a0.w, a1.w, a2.w)));
+  } else {
+    __stcs(out, interpolate(w0, w1, w2, __ldg(fa), __ldg(fa + A),
+                            __ldg(fa + 2 * A)));
   }
-  out_depth[pix] = best;
-  out_mask[pix] = 1;
+  if (q == 0) {
+    out_depth[pix] = __uint_as_float((unsigned)(key >> 32));
+    out_mask[pix] = 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// face_boxes: the per-face boxes that raster_faces reads, one thread a face.
+// It computes what ops/rasterizer_cuda.py::face_boxes_plain computes (whose
+// docstring derives the rule: the vertices' bounding box grown by a bound on
+// the rounding error of the face's planes) with every operation rounded as
+// eager torch rounds it and in the same order, so the boxes are equal to the
+// plain version's. torch.amin, amax and maximum hand a NaN on; fminf and
+// fmaxf would drop it.
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+// 6 (|a| W + |b| H) + 1.5 (|q| + |r|) + 5 |q - r| for the edge from vertex
+// i to vertex j: a = y_i - y_j, b = x_j - x_i, q = x_i y_j, r = y_i x_j.
+__device__ __forceinline__ float plane_error(float xi, float yi, float xj,
+                                             float yj, float fW, float fH) {
+  const float a = __fsub_rn(yi, yj), b = __fsub_rn(xj, xi);
+  const float q = __fmul_rn(xi, yj), r = __fmul_rn(yi, xj);
+  const float s = __fadd_rn(fabsf(q), fabsf(r));
+  const float ab = __fadd_rn(__fmul_rn(fabsf(a), fW), __fmul_rn(fabsf(b), fH));
+  return __fadd_rn(__fadd_rn(__fmul_rn(6.0f, ab), __fmul_rn(1.5f, s)),
+                   __fmul_rn(5.0f, fabsf(__fsub_rn(q, r))));
+}
+
+// First and last pixel index along one axis of n pixels.
+__device__ __forceinline__ void axis_box(float v0, float v1, float v2, float E,
+                                         bool degenerate, int n, int& first,
+                                         int& last) {
+  const float u8 = 4.76837158203125e-07f;              // 8 x 2^-24
+  const float lo = nan_min(nan_min(v0, v1), v2);
+  const float hi = nan_max(nan_max(v0, v1), v2);
+  const float margin = __fadd_rn(
+      __fmul_rn(__fmul_rn(2.0f, E), __fsub_rn(hi, lo)),
+      __fmul_rn(u8, nan_max(fabsf(lo), fabsf(hi))));
+  float f = ceilf(__fsub_rn(__fsub_rn(lo, margin), 0.5f));
+  float l = floorf(__fsub_rn(__fadd_rn(hi, margin), 0.5f));
+  if (f != f) f = 0.0f;                  // the whole axis where not finite
+  if (l != l) l = (float)n;
+  first = degenerate ? 0 : (int)fminf(fmaxf(f, 0.0f), (float)n);
+  last = degenerate ? -1 : (int)fminf(fmaxf(l, -1.0f), (float)(n - 1));
+}
+
+__global__ void __launch_bounds__(kThreads)
+face_boxes(const float* __restrict__ face_verts, int4* __restrict__ boxes,
+           int n_faces, int H, int W) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_faces) return;
+  const float* v = face_verts + (size_t)i * 9;         // [vertex][x y z]
+  const float x0 = __ldg(v), y0 = __ldg(v + 1), x1 = __ldg(v + 3),
+              y1 = __ldg(v + 4), x2 = __ldg(v + 6), y2 = __ldg(v + 7);
+  const float u = 5.9604644775390625e-08f;             // 2^-24
+  const float p1 = __fmul_rn(__fsub_rn(x1, x0), __fsub_rn(y2, y0));
+  const float p2 = __fmul_rn(__fsub_rn(y1, y0), __fsub_rn(x2, x0));
+  const float denom = __fsub_rn(p1, p2);
+  const bool degenerate = fabsf(denom) <= 1e-9f;
+  // torch evaluates u / |denom| as reciprocal(|denom|) * u.
+  const float scale = __fmul_rn(__frcp_rn(fabsf(denom)), u);
+  const float rho = __fmul_rn(__fmul_rn(8.0f, scale),
+                              __fadd_rn(fabsf(p1), fabsf(p2)));
+  const float planes = __fadd_rn(plane_error(x1, y1, x2, y2, (float)W, (float)H),
+                                 plane_error(x2, y2, x0, y0, (float)W, (float)H));
+  float E = __fdiv_rn(
+      __fmul_rn(2.0f, __fadd_rn(__fadd_rn(rho, __fmul_rn(scale, planes)),
+                                __fmul_rn(4.0f, u))),
+      __fsub_rn(1.0f, rho));
+  if (!(isfinite(E) && rho < 0.5f)) E = INFINITY;
+  int4 box;
+  axis_box(y0, y1, y2, E, degenerate, H, box.x, box.y);
+  axis_box(x0, x1, x2, E, degenerate, W, box.z, box.w);
+  boxes[i] = box;
 }
 
 }  // namespace
 
-// Launches on `stream` (PyTorch's current stream); returns cudaGetLastError().
+// One launch on `stream`: the boxes of n_faces faces. Returns the CUDA error,
+// 0 if none.
+extern "C" int hp3d_face_boxes(const void* face_verts, void* boxes, int n_faces,
+                               int H, int W, void* stream) {
+  face_boxes<<<(n_faces + kThreads - 1) / kThreads, kThreads, 0,
+               (cudaStream_t)stream>>>((const float*)face_verts, (int4*)boxes,
+                                       n_faces, H, W);
+  return (int)cudaGetLastError();
+}
+
+// Three launches on `stream` (PyTorch's current stream): the keys' memset,
+// raster_faces, resolve. Returns the first CUDA error, 0 if none.
 extern "C" int hp3d_rasterize(const void* geom, const void* fattr,
-                              const void* ranges, void* out_attrs,
+                              const void* boxes, void* zkey, void* out_attrs,
                               void* out_depth, void* out_mask, int B, int H,
                               int W, int Fp, int A, float znear, void* stream) {
-  const int tiles = ((H + kTile - 1) / kTile) * ((W + kTile - 1) / kTile);
-  const dim3 grid(tiles, B);
-  raster_kernel<<<grid, kTile * kTile, 0, (cudaStream_t)stream>>>(
-      (const float*)geom, (const float*)fattr, (const int4*)ranges,
-      (float*)out_attrs, (float*)out_depth, (unsigned char*)out_mask, H, W, Fp,
-      A, znear);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(zkey, 0xFF, (size_t)B * H * W * sizeof(u64), st);
+  if (err != cudaSuccess) return (int)err;
+  const int band_rows = min(H, max(1, kBandPixels / W));
+  const dim3 faces_grid((Fp + kBlockFaces - 1) / kBlockFaces, B,
+                        (H + band_rows - 1) / band_rows);
+  raster_faces<<<faces_grid, kThreads, 0, st>>>(
+      (const float*)geom, (const int4*)boxes, (u64*)zkey, H, W, Fp, band_rows,
+      znear);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int vec = (A % 4 == 0) ? 4 : 1;
+  const dim3 pixels_grid((W * (A / vec) + kThreads - 1) / kThreads, H, B);
+  if (vec == 4) {
+    resolve<4><<<pixels_grid, kThreads, 0, st>>>(
+        (const u64*)zkey, (const float*)geom, (const float*)fattr,
+        (float*)out_attrs, (float*)out_depth, (unsigned char*)out_mask, H, W,
+        Fp, A);
+  } else {
+    resolve<1><<<pixels_grid, kThreads, 0, st>>>(
+        (const u64*)zkey, (const float*)geom, (const float*)fattr,
+        (float*)out_attrs, (float*)out_depth, (unsigned char*)out_mask, H, W,
+        Fp, A);
+  }
   return (int)cudaGetLastError();
 }

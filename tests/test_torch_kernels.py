@@ -7,13 +7,15 @@ the repo's conftest:
 
 The `cuda` tests skip where torch finds no CUDA device: a CUDA kernel has
 no CPU mode. On the card the kernel must match the plain version bit for
-bit on mask and depth, and to 1e-5 on attrs.
+bit on mask and depth, and to 1e-5 on attrs; the face_boxes kernel's boxes
+must equal its plain version's.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
 from hierarchicalprobabilistic3dhuman_torch.ops import rasterizer_cuda as trc
 from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
@@ -28,7 +30,7 @@ from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
 torch.set_num_threads(2)
 
 
-def _triangle_tables(device="cpu"):
+def _triangle_tables(device="cpu", hw=(64, 64)):
     """Nested faces at two depths, a square split on its diagonal through
     pixel centres (a shared edge), and the same square again at the same
     depth (ties go to the lower face index)."""
@@ -41,22 +43,36 @@ def _triangle_tables(device="cpu"):
     faces = torch.tensor([[0, 1, 2], [3, 4, 5], [6, 7, 8], [7, 9, 8],
                           [6, 9, 8]], device=device)
     attrs = torch.arange(30, dtype=torch.float32, device=device).reshape(1, 10, 3)
-    return trc.pack_face_tables(verts, faces, attrs)
+    return trc.pack_face_tables(verts, faces, attrs, hw)
 
 
 def test_wrapper_dispatch_on_cpu():
     """CPU tensors take the plain version and launch nothing; the kernel
     entry refuses CPU tensors instead of falling back."""
-    tables = _triangle_tables()
+    tables = _triangle_tables(hw=(32, 32))
     before = trc.rasterize_packed_cuda.launches
-    out = trc.rasterize_packed(*tables, (32, 32))
-    plain = trc.rasterize_packed_plain(*tables, (32, 32))
+    out = trc.rasterize_packed(tables)
+    plain = trc.rasterize_packed_plain(tables)
     for a, b in zip(out, plain):
         assert torch.equal(a, b)
     assert out[2].sum() > 100
     assert trc.rasterize_packed_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        trc.rasterize_packed_cuda(*tables, (32, 32))
+        trc.rasterize_packed_cuda(tables)
+
+
+def test_face_boxes_dispatch_on_cpu():
+    """The same for the fourth table's kernel."""
+    scene = chip_smoke.triangle_scene("cpu")
+    fv, faces = trc.face_vertices(scene.screen, scene.faces)
+    assert fv.shape == (1, 128, 3, 3) and faces.shape == (128, 3)
+    before = trc.face_boxes_cuda.launches
+    boxes = trc.face_boxes(fv, (64, 64))
+    assert torch.equal(boxes, trc.face_boxes_plain(fv, (64, 64)))
+    assert torch.equal(boxes, scene.tables.face_boxes)
+    assert trc.face_boxes_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        trc.face_boxes_cuda(fv, (64, 64))
 
 
 def test_kernel_source_names_what_it_replaces():
@@ -73,7 +89,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _smpl_tables(device, img_wh):
+def _smpl_tables(device, hw):
     rng = np.random.RandomState(3)
     smpl = SMPL.synthetic(device=device)
 
@@ -86,25 +102,104 @@ def _smpl_tables(device, img_wh):
                       aa_rotate_translate_points(rest, X_AXIS, np.pi, ZERO_T),
                       jet_colormap(tensor(rng.rand(1, 6890) * 0.2)),
                       tensor([[0.0, -0.2, 2.5]]), tensor([[0.95, 0.95]]))
-    renderer = TexturedIUVRenderer(img_wh=img_wh, device=device)
+    renderer = TexturedIUVRenderer(img_wh=hw[0], device=device)
     screen, vert_attrs = renderer.raster_inputs(
         views["vertices"], views["cam_t"], views["orthographic_scale"],
         views["verts_features"])
-    return trc.pack_face_tables(screen, renderer.faces, vert_attrs)
+    return trc.pack_face_tables(screen, renderer.faces, vert_attrs, hw)
+
+
+def _scene_tables(scene, device, hw):
+    """Packed tables of a named scene:
+      triangles  shared edges and equal-depth ties
+      smpl       the predict path's 6 views, A = 12; at 100 x 90 the meshes
+                 are projected for 100 columns, so faces hang off the image
+      sliver     chip_smoke.sliver_scene: near-degenerate, off-screen and
+                 larger-than-image faces
+      eval       1 mesh, A = 3 (256^2)
+      batch8     8 perspective meshes, A = 12 (256^2)
+    """
+    if scene == "triangles":
+        return _triangle_tables(device, hw)
+    if scene == "smpl":
+        return _smpl_tables(device, hw)
+    if scene == "sliver":
+        return chip_smoke.sliver_scene(device).tables
+    if scene == "eval":
+        return chip_smoke.eval_scene(device).tables
+    return chip_smoke.train_scene(device, batch=8).tables
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene,hw", [("triangles", (64, 64)),
                                       ("smpl", (128, 128)),
-                                      ("smpl", (100, 90))])
+                                      ("smpl", (100, 90)),
+                                      ("sliver", chip_smoke.SLIVER_HW),
+                                      ("eval", (256, 256)),
+                                      ("batch8", (256, 256))])
 def test_kernel_matches_plain_on_card(cuda_device, scene, hw):
-    tables = (_triangle_tables(cuda_device) if scene == "triangles"
-              else _smpl_tables(cuda_device, hw[0]))
+    tables = _scene_tables(scene, cuda_device, hw)
     before = trc.rasterize_packed_cuda.launches
-    ka, kd, km = trc.rasterize_packed_cuda(*tables, hw)
-    pa, pd, pm = trc.rasterize_packed_plain(*tables, hw)
+    ka, kd, km = trc.rasterize_packed_cuda(tables)
+    pa, pd, pm = trc.rasterize_packed_plain(tables)
     torch.cuda.synchronize()
     assert trc.rasterize_packed_cuda.launches == before + 1
     assert km.sum() > 100
     assert torch.equal(km, pm) and torch.equal(kd, pd)
     assert (ka - pa).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,hw", [("smpl", (128, 128)),
+                                      ("sliver", chip_smoke.SLIVER_HW)])
+def test_kernel_is_deterministic_on_card(cuda_device, scene, hw):
+    """The key minimum is commutative: the order in which faces reach a
+    pixel cannot show, so two runs on the same tables are bit-identical."""
+    tables = _scene_tables(scene, cuda_device, hw)
+    first = [t.clone() for t in trc.rasterize_packed_cuda(tables)]
+    second = trc.rasterize_packed_cuda(tables)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,hw", [("triangles", (64, 64)),
+                                      ("smpl", (100, 90)),
+                                      ("sliver", chip_smoke.SLIVER_HW),
+                                      ("batch8", (256, 256))])
+def test_face_boxes_kernel_equals_plain_on_card(cuda_device, scene, hw):
+    """Tolerance 0: the kernel rounds as the torch ops do. The scenes'
+    tables were packed on the card, so their boxes are the kernel's."""
+    if scene == "sliver":
+        built = chip_smoke.sliver_scene(cuda_device)
+    elif scene == "batch8":
+        built = chip_smoke.train_scene(cuda_device, batch=8)
+    elif scene == "triangles":
+        built = chip_smoke.triangle_scene(cuda_device)
+    else:
+        built = chip_smoke.predict_scene(cuda_device, img_wh=hw[1])
+    fv, _ = trc.face_vertices(built.screen, built.faces)
+    before = trc.face_boxes_cuda.launches
+    boxes = trc.face_boxes(fv, hw)
+    assert trc.face_boxes_cuda.launches == before + 1
+    assert torch.equal(boxes, trc.face_boxes_plain(fv, hw))
+    if hw == built.tables.image_hw:
+        assert torch.equal(boxes, built.tables.face_boxes)
+    assert (boxes[..., 1] >= boxes[..., 0]).sum() > 4
+
+
+@pytest.mark.cuda
+def test_face_boxes_kernel_equals_plain_on_odd_vertices(cuda_device):
+    """NaN, infinite, huge and denormal coordinates, and exactly degenerate
+    faces, take the same branches in the kernel as in the torch ops."""
+    rng = np.random.RandomState(5)
+    fv = (rng.rand(2, 256, 3, 3) * 80 - 10).astype(np.float32)
+    odd = [np.nan, np.inf, -np.inf, 3e38, -3e38, 1e-40, 0.0, 1e19, -1e19]
+    for k in range(2 * 200):
+        fv[k % 2, k // 2, rng.randint(3), rng.randint(2)] = odd[k % len(odd)]
+    fv[:, 200:230, 2] = fv[:, 200:230, 1]            # two vertices coincide
+    fv = torch.as_tensor(fv, device=cuda_device)
+    for hw in ((64, 64), (48, 100)):
+        assert torch.equal(trc.face_boxes_cuda(fv, hw),
+                           trc.face_boxes_plain(fv, hw))
