@@ -29,14 +29,34 @@ Phases (any failure exits non-zero before the final line):
      launches of one kernel call, counted from a profile; the rasterize step
      (tables + kernel) and its parts on the host's clock and the card's, at
      the predict and training shapes; and the kernel's plain version at the
-     predict shape.
+     predict shape;
+  5. the batched and figure paths, each driven with the launch counts set
+     to 0 just before it and read just after: (a) both kernels against their
+     plain versions on the tables of the batched figure's render (4 images,
+     24 meshes at 512^2) and of the samples figure's (18 meshes), built by
+     the path from one batched HRNet + core call; (b) `run_predict_torch.py
+     --batch_size 4 --no_vis` on the 12 demo photos (no launch,
+     outputs.npz, outputs within 1e-4 of the per-image driver's); (c) the
+     same with figures and uncrops (one launch of each kernel a chunk); (d)
+     the per-image samples and uncrop figures on one photo (two launches);
+     (e) a demo photo pasted into a 960x720 canvas through both keypoint
+     detectors (boxes on the card within 1 px of the CPU's, same weights),
+     and through the batched --no_vis driver with the single-person one
+     (box and outputs within 1e-4 of the per-image driver's); (f) the
+     kernels at the two new shapes beside their bounds, --no_vis img/s at
+     batch 1, 4 and 8 and with the bfloat16 HRNet, ms/image with figures at
+     batch 4 on one chunk, a chunk's HRNet and core times and launches, and
+     the bfloat16 HRNet against float32. Each phase logs its wall time.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -51,6 +71,14 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(REPO, "demo")
 DEMO_PHOTOS = ("00000.png", "00003.png", "00007.png")
+# Phase 5: the batch size of the batched paths, and the demo photo pasted
+# into a larger canvas (rows, columns) for the detectors.
+BATCH = 4
+DETECTOR_PHOTO = "00007.png"
+CANVAS_HW = (720, 960)
+# The figures' view size (the CLI's default) and the 2 x 4 figure's shape.
+FIGURE_WH = 512
+FIGURE_SHAPE = (2 * FIGURE_WH, 4 * FIGURE_WH, 3)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor).
 PEAK_BYTES_PER_S = 3.35e12
@@ -92,6 +120,14 @@ def log(msg):
     print(msg, flush=True)
 
 
+def timed_phase(tag, fn, *args):
+    """fn(*args), its wall time logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[{tag}] took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -117,12 +153,22 @@ def median_ms(fn, repeats=5, inner=1):
     return statistics.median(times)
 
 
-def predict_scene(device, img_wh=512, seed=0):
-    """The 6 views the predict path renders for one image (posed x4
-    rotations + T-pose x2), on synthetic SMPL with a seeded random pose,
-    packed by the renderer: A = 12 attributes.
+def render_scene(renderer, views):
+    """The Scene one renderer call packs for the meshes of `views` (the
+    renderer arguments six_views and samples_views build)."""
+    screen, vert_attrs = renderer.raster_inputs(
+        views["vertices"], views["cam_t"], views["orthographic_scale"],
+        views["verts_features"])
+    return make_scene(screen, renderer.faces, vert_attrs,
+                      (renderer.img_wh, renderer.img_wh))
 
-    :return: Scene with screen (6, 7829, 3), faces (13774, 3)
+
+def predict_scene(device, img_wh=512, seed=0, batch=1):
+    """The 6 views the predict path renders for each of `batch` images
+    (posed x4 rotations + T-pose x2) in one call, on synthetic SMPL with
+    seeded random poses, packed by the renderer: A = 12 attributes.
+
+    :return: Scene with screen (6 batch, 7829, 3), faces (13774, 3)
     """
     from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
@@ -138,19 +184,52 @@ def predict_scene(device, img_wh=512, seed=0):
     def tensor(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device)
 
-    betas = tensor(rng.randn(1, 10))
-    posed = smpl(betas=betas, body_pose=tensor(rng.randn(1, 69) * 0.2))
+    betas = tensor(rng.randn(batch, 10))
+    posed = smpl(betas=betas, body_pose=tensor(rng.randn(batch, 69) * 0.2))
     views = six_views(
         aa_rotate_translate_points(posed["vertices"], X_AXIS, np.pi, ZERO_T),
         aa_rotate_translate_points(smpl(betas=betas)["vertices"], X_AXIS,
                                    np.pi, ZERO_T),
-        jet_colormap(tensor(rng.rand(1, 6890) * 0.2)),
-        tensor([[0.0, -0.1, 2.5]]), tensor([[0.9, 0.9]]))
-    renderer = TexturedIUVRenderer(device, img_wh=img_wh)
-    screen, vert_attrs = renderer.raster_inputs(
-        views["vertices"], views["cam_t"], views["orthographic_scale"],
-        views["verts_features"])
-    return make_scene(screen, renderer.faces, vert_attrs, (img_wh, img_wh))
+        jet_colormap(tensor(rng.rand(batch, 6890) * 0.2)),
+        tensor([[0.0, -0.1, 2.5]] * batch), tensor([[0.9, 0.9]] * batch))
+    return render_scene(TexturedIUVRenderer(device, img_wh=img_wh), views)
+
+
+def samples_scene(device, img_wh=512, seed=6):
+    """The samples figure's 18 meshes for one image (the mode and the 8
+    samples of least 2D joint error, front and turned), as samples_views
+    builds them from the path's 50 seeded synthetic-SMPL pose samples and a
+    proxy of one bright pixel per joint, packed by the renderer: A = 12.
+
+    :return: Scene with screen (18, 7829, 3)
+    """
+    from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
+        X_AXIS, Y_AXIS, ZERO_T, samples_views)
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
+        aa_rotate_translate_points)
+
+    rng = np.random.RandomState(seed)
+    smpl = SMPL.synthetic(device)
+
+    def tensor(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    meshes = 1 + 50   # the mode and the samples
+    betas = tensor(np.repeat(rng.randn(1, 10), meshes, axis=0))
+    out = smpl(betas=betas, body_pose=tensor(rng.randn(meshes, 69) * 0.2))
+    verts_mode = aa_rotate_translate_points(out["vertices"][:1], X_AXIS, np.pi,
+                                            ZERO_T)
+    proxy = torch.zeros((1, 18, 256, 256), device=device)
+    proxy[0, 1 + np.arange(17), rng.randint(40, 216, 17),
+          rng.randint(40, 216, 17)] = 1.0
+    return render_scene(TexturedIUVRenderer(device, img_wh=img_wh), samples_views(
+        out["vertices"][None, 1:], out["joints"][None, 1:], proxy,
+        tensor([[0.9, 0.02, -0.05]]), verts_mode,
+        aa_rotate_translate_points(verts_mode, Y_AXIS, -np.pi / 2, ZERO_T),
+        tensor([[0.02, -0.05, 2.5]]), tensor([[0.9, 0.9]])))
 
 
 def eval_scene(device, seed=1):
@@ -313,26 +392,54 @@ def box_tests(face_boxes):
                 * torch.clamp(b[..., 3] - b[..., 2] + 1, min=0)).sum())
 
 
+def boxes_differ(tag, name, scene):
+    """Largest difference of the face_boxes kernel's boxes from its plain
+    version's on a scene (they must be equal, and the scene's tables, packed
+    on the card, hold them)."""
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        face_boxes_cuda, face_boxes_plain, face_vertices)
+    fv, _ = face_vertices(scene.screen, scene.faces)
+    hw = scene.tables.image_hw
+    kb, pb = face_boxes_cuda(fv, hw), face_boxes_plain(fv, hw)
+    diff = int((kb - pb).abs().max())
+    log(f"[{tag}] {name} scene, face_boxes {tuple(kb.shape)}: max abs "
+        f"diff from the plain version {diff} (tol 0)")
+    if diff or not torch.equal(kb, scene.tables.face_boxes):
+        raise AssertionError(f"face_boxes kernel disagrees with its plain "
+                             f"version on the {name} scene")
+    return diff
+
+
+def hold_to_plain(tag, name, scene):
+    """Both kernels against their plain versions on a scene: mask and depth
+    bit-equal, attrs within 1e-5, boxes equal.
+
+    :return: covered pixels, attrs max abs diff, boxes max abs diff, the
+        kernel's outputs
+    """
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        rasterize_packed_cuda, rasterize_packed_plain)
+    box_diff = boxes_differ(tag, name, scene)
+    ka, kd, km = rasterize_packed_cuda(scene.tables)
+    pa, pd, pm = rasterize_packed_plain(scene.tables)
+    torch.cuda.synchronize()
+    mask_diff = int((km != pm).sum())
+    depth_equal = bool(torch.equal(kd, pd))
+    attr_err = float((ka - pa).abs().max())
+    log(f"[{tag}] {name} scene {tuple(ka.shape)}: covered pixels "
+        f"{int(km.sum())}, mask differs at {mask_diff}, depth bit-equal "
+        f"{depth_equal}, attrs max abs diff {attr_err:.3e} (tol 1e-5)")
+    if mask_diff or not depth_equal or not attr_err <= 1e-5:
+        raise AssertionError(f"kernel disagrees with its plain version on "
+                             f"the {name} scene")
+    return int(km.sum()), attr_err, box_diff, (ka, kd, km)
+
+
 def phase_kernel_vs_plain(device):
     """:return: the predict, eval and train scenes with their covered
     pixels, the largest attrs difference and the largest box difference"""
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        face_boxes_cuda, face_boxes_plain, face_vertices,
         rasterize_packed_cuda, rasterize_packed_plain)
-
-    def boxes_differ(name, scene):
-        """Largest difference of the face_boxes kernel's boxes from its plain
-        version's (they must be equal, and the scene's tables hold them)."""
-        fv, _ = face_vertices(scene.screen, scene.faces)
-        hw = scene.tables.image_hw
-        kb, pb = face_boxes_cuda(fv, hw), face_boxes_plain(fv, hw)
-        diff = int((kb - pb).abs().max())
-        log(f"[phase 2] {name} scene, face_boxes {tuple(kb.shape)}: max abs "
-            f"diff from the plain version {diff} (tol 0)")
-        if diff or not torch.equal(kb, scene.tables.face_boxes):
-            raise AssertionError(f"face_boxes kernel disagrees with its plain "
-                                 f"version on the {name} scene")
-        return diff
 
     scenes = {}
     worst = 0.0
@@ -340,30 +447,20 @@ def phase_kernel_vs_plain(device):
     for name, build in (("predict", predict_scene), ("sliver", sliver_scene),
                         ("eval", eval_scene), ("train", train_scene)):
         scene = build(device)
-        worst_box = max(worst_box, boxes_differ(name, scene))
-        ka, kd, km = rasterize_packed_cuda(scene.tables)
-        pa, pd, pm = rasterize_packed_plain(scene.tables)
-        torch.cuda.synchronize()
-        mask_diff = int((km != pm).sum())
-        depth_equal = bool(torch.equal(kd, pd))
-        attr_err = float((ka - pa).abs().max())
-        worst = max(worst, attr_err)
-        log(f"[phase 2] {name} scene {tuple(ka.shape)}: covered pixels "
-            f"{int(km.sum())}, mask differs at {mask_diff}, depth bit-equal "
-            f"{depth_equal}, attrs max abs diff {attr_err:.3e} (tol 1e-5)")
-        if mask_diff or not depth_equal or not attr_err <= 1e-5:
-            raise AssertionError(f"kernel disagrees with its plain version on "
-                                 f"the {name} scene")
+        covered, attr_err, box_diff, kernel_out = hold_to_plain(
+            "phase 2", name, scene)
+        worst, worst_box = max(worst, attr_err), max(worst_box, box_diff)
         if name == "predict":
             again = rasterize_packed_cuda(scene.tables)
             torch.cuda.synchronize()
-            same = all(torch.equal(x, y) for x, y in zip((ka, kd, km), again))
+            same = all(torch.equal(x, y) for x, y in zip(kernel_out, again))
             log(f"[phase 2] predict scene run twice: outputs identical {same}")
             if not same:
                 raise AssertionError("two runs on the same tables differ")
-        scenes[name] = (scene, int(km.sum()))
+        scenes[name] = (scene, covered)
 
-    worst_box = max(worst_box, boxes_differ("triangle", triangle_scene(device)))
+    worst_box = max(worst_box, boxes_differ("phase 2", "triangle",
+                                            triangle_scene(device)))
     tri = triangle_scene(device).tables
     ta, td, tm = rasterize_packed_cuda(tri)
     qa, qd, qm = rasterize_packed_plain(tri)
@@ -377,42 +474,73 @@ def phase_kernel_vs_plain(device):
     return scenes, worst, worst_box
 
 
-def phase_main_path(workdir):
-    from hierarchicalprobabilistic3dhuman_torch.cli.predict import main
+def run_path(tag, what, fn, expect):
+    """Drive one path with both kernels' launch counts set to 0 just before
+    it and read just after; each count must equal `expect`.
+
+    :return: fn's result, the counts
+    """
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
         face_boxes_cuda, rasterize_packed_cuda)
-    import cv2
-
-    image_dir = os.path.join(workdir, "demo3")
-    save_dir = os.path.join(workdir, "out")
-    os.makedirs(image_dir)
-    for f in DEMO_PHOTOS:
-        shutil.copy(os.path.join(DEMO, f), image_dir)
-    argv = ["--image_dir", image_dir, "--save_dir", save_dir,
-            "--cropped_images", "--device", "cuda"]
     rasterize_packed_cuda.launches = face_boxes_cuda.launches = 0
     t0 = time.perf_counter()
-    results = main(argv)
+    result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"rasterize": rasterize_packed_cuda.launches,
                 "face_boxes": face_boxes_cuda.launches}
-    log(f"[phase 3] run_predict_torch.py on {len(DEMO_PHOTOS)} demo photos: "
-        f"{wall:.2f} s cold (model init included); kernel launches {launches}")
-    if set(launches.values()) != {len(DEMO_PHOTOS)}:
-        raise AssertionError(f"expected one launch of each kernel per image, "
-                             f"got {launches}")
-    if sorted(results) != sorted(DEMO_PHOTOS):
+    log(f"[{tag}] {what}: {wall:.2f} s; kernel launches {launches}, "
+        f"expected {expect} of each")
+    if set(launches.values()) != {expect}:
+        raise AssertionError(f"{what}: expected {expect} launches of each "
+                             f"kernel, got {launches}")
+    return result, launches
+
+
+def check_results(tag, results, fnames):
+    """Every photo has finite outputs of the expected shapes."""
+    if sorted(results) != sorted(fnames):
         raise AssertionError(f"results for {sorted(results)}")
     for fname, res in results.items():
         for k, shape in (("pose_mode", (23, 3, 3)), ("shape_mean", (10,)),
                          ("cam", (3,)), ("per_vertex_uncertainty", (6890,))):
             if res[k].shape != shape or not np.isfinite(res[k]).all():
-                raise AssertionError(f"{fname}/{k}: shape {res[k].shape}, "
-                                     f"finite {np.isfinite(res[k]).all()}")
-        fig = cv2.imread(os.path.join(save_dir, fname))
-        if fig is None or fig.shape != (1024, 2048, 3) or fig.std() < 1.0:
-            raise AssertionError(f"{fname}: figure missing or blank")
+                raise AssertionError(f"[{tag}] {fname}/{k}: shape "
+                                     f"{res[k].shape}, finite "
+                                     f"{np.isfinite(res[k]).all()}")
+
+
+def check_image(path, shape):
+    """A written figure of the given shape that is not blank."""
+    import cv2
+    img = cv2.imread(path)
+    if img is None or img.shape != shape or img.std() < 1.0:
+        raise AssertionError(f"{path}: missing, blank or not of shape {shape} "
+                             f"({None if img is None else img.shape})")
+    return img
+
+
+def demo_folder(workdir, name, photos):
+    image_dir = os.path.join(workdir, name)
+    os.makedirs(image_dir)
+    for f in photos:
+        shutil.copy(os.path.join(DEMO, f), image_dir)
+    return image_dir
+
+
+def phase_main_path(workdir):
+    from hierarchicalprobabilistic3dhuman_torch.cli.predict import main
+
+    image_dir = demo_folder(workdir, "demo3", DEMO_PHOTOS)
+    save_dir = os.path.join(workdir, "out")
+    argv = ["--image_dir", image_dir, "--save_dir", save_dir,
+            "--cropped_images", "--device", "cuda"]
+    results, launches = run_path(
+        "phase 3", f"run_predict_torch.py on {len(DEMO_PHOTOS)} demo photos",
+        lambda: main(argv), expect=len(DEMO_PHOTOS))
+    check_results("phase 3", results, DEMO_PHOTOS)
+    for fname, res in results.items():
+        fig = check_image(os.path.join(save_dir, fname), (1024, 2048, 3))
         rot = np.einsum("jab,jcb->jac", res["pose_mode"], res["pose_mode"])
         log(f"[phase 3] {fname}: figure {fig.shape}, |R R^T - I| "
             f"{np.abs(rot - np.eye(3)).max():.2e}, uncertainty mean "
@@ -420,11 +548,9 @@ def phase_main_path(workdir):
     return argv, launches
 
 
-def core_render_tables(out, smpl, renderer):
-    """Screen vertices and packed face tables of the core's 6-view render,
-    rebuilt from its outputs as make_predict_core builds them."""
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        pack_face_tables)
+def core_render_scene(out, smpl, renderer):
+    """The Scene of the core's 6-view render (6 B meshes), rebuilt from its
+    outputs as make_predict_core builds it."""
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         X_AXIS, ZERO_T, jet_colormap, six_views)
     from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
@@ -438,11 +564,7 @@ def core_render_tables(out, smpl, renderer):
         out["verts_mode"], reposed, jet_colormap(out["per_vertex_3Dvar"]),
         torch.cat([cam[:, 1:], torch.full((B, 1), 2.5, device=cam.device)], -1),
         cam[:, 0:1].expand(B, 2))
-    screen, vert_attrs = renderer.raster_inputs(
-        views["vertices"], views["cam_t"], views["orthographic_scale"],
-        views["verts_features"])
-    return screen, pack_face_tables(screen, renderer.faces, vert_attrs,
-                                    (renderer.img_wh, renderer.img_wh))
+    return render_scene(renderer, views)
 
 
 def face_depths(geom, px, py, znear=1e-3):
@@ -558,8 +680,9 @@ def phase_core_cuda_vs_cpu():
             t = [torch.as_tensor(a, device=dev) for a in inputs]
             with torch.inference_mode():
                 out = core(*t[:3], eps=t[3], w=t[4])
-                screen, tables[dev] = core_render_tables(out, smpl, renderer)
-            out["screen"] = screen
+                scene = core_render_scene(out, smpl, renderer)
+            tables[dev] = scene.tables
+            out["screen"] = scene.screen
             outs[dev] = {k: v.float().cpu() for k, v in out.items()}
         a, b = outs["cuda"], outs["cpu"]
         errs = {k: float((a[k] - b[k]).abs().max())
@@ -718,7 +841,7 @@ def time_raster_step(name, scene):
             f"busy {p['device_ms']:.4f} ms")
 
 
-def time_face_boxes(scenes):
+def time_face_boxes(scenes, tag="phase 4"):
     """The face_boxes kernel at the three shapes beside its bound (6
     coordinates read and 4 indices written per face over the memory rate;
     OPS_PER_FACE_BOX operations per face over the float32 rate), and its
@@ -734,7 +857,7 @@ def time_face_boxes(scenes):
         bytes_ms = n_faces * (6 * 4 + 4 * 4) / PEAK_BYTES_PER_S * 1e3
         ops_ms = n_faces * OPS_PER_FACE_BOX / PEAK_F32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        log(f"[phase 4] face_boxes {name}, {n_faces} faces: kernel {ms:.4f} "
+        log(f"[{tag}] face_boxes {name}, {n_faces} faces: kernel {ms:.4f} "
             f"ms; bound {bound_ms:.5f} ms (bytes {n_faces * 40} -> "
             f"{bytes_ms:.5f} ms, operations -> {ops_ms:.5f} ms); kernel at "
             f"{ms / bound_ms:.1f}x its bound")
@@ -742,16 +865,16 @@ def time_face_boxes(scenes):
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         if name == "predict":
             out["plain_ms"] = median_ms(lambda: face_boxes_plain(fv, hw), inner=20)
-            log(f"[phase 4] face_boxes predict: plain version "
+            log(f"[{tag}] face_boxes predict: plain version "
                 f"{out['plain_ms']:.4f} ms")
     return out
 
 
 def phase_timing(argv, scenes):
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        rasterize_packed_plain)
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
         build_parser, build_predictor)
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        rasterize_packed_cuda, rasterize_packed_plain)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
         make_hrnet_predictor)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
@@ -803,22 +926,7 @@ def phase_timing(argv, scenes):
 
     out = {"predict_ms": predict_ms}
     for name, (scene, covered) in scenes.items():
-        tables = scene.tables
-        H, W = tables.image_hw
-        kernel_ms = median_ms(lambda: rasterize_packed_cuda(tables), inner=20)
-        bound = raster_bound(scene, covered)
-        made = box_tests(tables.face_boxes)
-        B, A = tables.geom_t.shape[0], tables.face_attrs.shape[-1] // 3
-        log(f"[phase 4] rasterize {name} {B}x{H}x{W} A={A}: kernel "
-            f"{kernel_ms:.4f} ms; bound {bound['ms']:.4f} ms (bytes "
-            f"{bound['bytes']} -> {bound['bytes_ms']:.4f} ms; "
-            f"{bound['tests']} pixel-face tests x {OPS_PER_TEST} ops + "
-            f"{covered} covered px x {5 * A} ops -> "
-            f"{bound['ops_ms']:.4f} ms); kernel at "
-            f"{kernel_ms / bound['ms']:.1f}x its bound; the per-face boxes "
-            f"ask for {made} tests, {made / bound['tests']:.3f}x the needed")
-        out[name] = {"kernel_ms": kernel_ms, "bound_ms": bound["ms"],
-                     "bound_by": bound["by"]}
+        out[name] = time_rasterizer("phase 4", name, scene, covered)
     predict = scenes["predict"][0]
     out["device_launches_per_call"] = rasterizer_device_launches(predict.tables)
     for name in ("predict", "train"):
@@ -827,6 +935,29 @@ def phase_timing(argv, scenes):
     out["plain_ms"] = median_ms(lambda: rasterize_packed_plain(predict.tables))
     log(f"[phase 4] rasterize predict: plain version {out['plain_ms']:.2f} ms")
     return out
+
+
+def time_rasterizer(tag, name, scene, covered):
+    """K1 on a scene's packed tables, median of 5 x 20 calls, beside its
+    bound (raster_bound)."""
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        rasterize_packed_cuda)
+    tables = scene.tables
+    H, W = tables.image_hw
+    kernel_ms = median_ms(lambda: rasterize_packed_cuda(tables), inner=20)
+    bound = raster_bound(scene, covered)
+    made = box_tests(tables.face_boxes)
+    B, A = tables.geom_t.shape[0], tables.face_attrs.shape[-1] // 3
+    log(f"[{tag}] rasterize {name} {B}x{H}x{W} A={A}: kernel "
+        f"{kernel_ms:.4f} ms; bound {bound['ms']:.4f} ms (bytes "
+        f"{bound['bytes']} -> {bound['bytes_ms']:.4f} ms; "
+        f"{bound['tests']} pixel-face tests x {OPS_PER_TEST} ops + "
+        f"{covered} covered px x {5 * A} ops -> "
+        f"{bound['ops_ms']:.4f} ms); kernel at "
+        f"{kernel_ms / bound['ms']:.1f}x its bound; the per-face boxes "
+        f"ask for {made} tests, {made / bound['tests']:.3f}x the needed")
+    return {"kernel_ms": kernel_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["by"]}
 
 
 def raster_bound(scene, covered):
@@ -853,6 +984,372 @@ def raster_bound(scene, covered):
             "by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def figure_scenes(kwargs, image_dir):
+    """The tables of the two renders this slice adds, built by the path's
+    own functions from one batched HRNet + core call on BATCH demo photos:
+    the batched figure's (6 BATCH meshes) and the samples figure's for the
+    first photo of the chunk (18 meshes)."""
+    import cv2
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
+        make_predict_core, samples_views)
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+
+    device = kwargs["device"]
+    by_shape = {}
+    for f in sorted(os.listdir(image_dir)):
+        rgb = cv2.cvtColor(cv2.imread(os.path.join(image_dir, f)),
+                           cv2.COLOR_BGR2RGB)
+        by_shape.setdefault(rgb.shape, []).append(rgb)
+    chunk = next(g for g in by_shape.values() if len(g) >= BATCH)[:BATCH]
+    stack = torch.as_tensor(np.stack(chunk), device=device)
+    hr = hrnet_predict(kwargs, stack)
+    renderer = TexturedIUVRenderer(device, img_wh=FIGURE_WH)
+    core = make_predict_core(
+        kwargs["pose_shape_model"], kwargs["pose_shape_cfg"],
+        kwargs["smpl_model"], kwargs["edge_detect_model"], renderer,
+        kwargs["hrnet_cfg"])
+    with torch.inference_mode():
+        out = core(hr["cropped_image"], hr["joints2D"], hr["joints2Dconfs"],
+                   generator=torch.Generator(device=device).manual_seed(0))
+        batched = core_render_scene(out, kwargs["smpl_model"], renderer)
+        samples = render_scene(renderer, samples_views(*(out[k][0:1] for k in (
+            "verts_samples", "joints_samples", "proxy", "cam", "verts_mode",
+            "verts_rot90", "pred_cam_t", "pred_scale"))))
+    return {"batched": batched, "samples": samples}, stack, hr
+
+
+def timed_folder_runs(kwargs, **opts):
+    """predict_folder_batched on the folder, one warm-up run and two timed
+    ones (host clock ending in a sync), its progress lines kept out of the
+    log.
+
+    :return: median ms/image of the whole run, and the median of the
+        steady-state img/s the driver prints (after its first chunk)
+    """
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
+        predict_folder_batched)
+    n = len(os.listdir(kwargs["image_dir"]))
+    ms, steady = [], []
+    for i in range(3):
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            predict_folder_batched(**kwargs, **opts)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3 / n)
+            found = re.search(r"\(([\d.]+) img/s steady-state", printed.getvalue())
+            if found:
+                steady.append(float(found.group(1)))
+    return (statistics.median(ms), ms,
+            statistics.median(steady) if steady else None)
+
+
+def detector_canvas(workdir):
+    """A demo photo pasted off-centre into a CANVAS_HW grey canvas, written
+    as the folder's one photo. :return: the folder, the canvas (RGB)"""
+    import cv2
+    photo = cv2.imread(os.path.join(DEMO, DETECTOR_PHOTO))
+    canvas = np.full(CANVAS_HW + (3,), 40, np.uint8)
+    top, left = 150, 380
+    canvas[top:top + photo.shape[0], left:left + photo.shape[1]] = photo
+    image_dir = os.path.join(workdir, "canvas")
+    os.makedirs(image_dir)
+    cv2.imwrite(os.path.join(image_dir, "canvas.png"), canvas)
+    return image_dir, cv2.cvtColor(canvas, cv2.COLOR_BGR2RGB)
+
+
+def phase_detector(workdir):
+    """Uncropped photos through both keypoint bootstrap detectors, as the
+    CLI builds them: the per-image predict (figure and uncrop) on the card
+    with each, and each detector's boxes on the card against the same
+    detector on the CPU with the same weights (within 1 px); then the
+    batched --no_vis driver with the single-person detector, its box and
+    outputs against the per-image driver's on the card."""
+    from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
+        _make_detector, build_parser, build_predictor)
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
+        predict_folder_batched, predict_pose_mf_shape_gaussian_net)
+
+    image_dir, canvas = detector_canvas(workdir)
+    image = torch.from_numpy(canvas).permute(2, 0, 1).float() / 255.0
+    worst = 0.0
+    built = {}
+    for kind in ("keypoint-multi", "keypoint"):
+        save_dir = os.path.join(workdir, f"canvas_{kind}")
+        argv = ["--image_dir", image_dir, "--save_dir", save_dir,
+                "--detector", kind, "--visualise_uncropped"]
+        for dev in ("cuda", "cpu"):
+            args = build_parser().parse_args(argv + ["--device", dev])
+            if dev not in built:
+                built[dev] = build_predictor(args)
+            built[dev]["object_detect_fn"] = _make_detector(
+                args, built[dev]["hrnet"], built[dev]["hrnet_cfg"],
+                built[dev]["device"])
+        card_boxes = []
+
+        def recorded(img, detect=built["cuda"]["object_detect_fn"]):
+            found = detect(img)
+            card_boxes.append(np.asarray(found["boxes"]))
+            return found
+
+        kwargs = dict(built["cuda"], object_detect_fn=recorded,
+                      save_dir=save_dir)
+        results, _ = run_path(
+            "phase 5e", f"run_predict_torch.py --detector {kind} "
+            f"--visualise_uncropped on a {CANVAS_HW[1]}x{CANVAS_HW[0]} photo",
+            lambda: predict_pose_mf_shape_gaussian_net(**kwargs), expect=1)
+        check_results("phase 5e", results, ["canvas.png"])
+        check_image(os.path.join(save_dir, "canvas.png"), FIGURE_SHAPE)
+        check_image(os.path.join(save_dir, "canvas_uncrop.png"),
+                    CANVAS_HW + (3,))
+        cpu_boxes = np.asarray(built["cpu"]["object_detect_fn"](image)["boxes"])
+        diff = (float(np.abs(card_boxes[0] - cpu_boxes).max())
+                if card_boxes[0].shape == cpu_boxes.shape and len(cpu_boxes)
+                else 0.0)
+        log(f"[phase 5e] {kind} detector: card boxes {card_boxes[0].tolist()}, "
+            f"CPU boxes {cpu_boxes.tolist()}, max abs diff {diff:.4f} px (tol "
+            f"1){'' if len(cpu_boxes) else '; no box: the whole photo is taken'}")
+        if card_boxes[0].shape != cpu_boxes.shape or diff > 1.0:
+            raise AssertionError(f"{kind} detector: the card's boxes differ "
+                                 f"from the CPU's")
+        worst = max(worst, diff)
+        if kind == "keypoint":
+            per_image, per_image_boxes = results, card_boxes[0]
+    # The batched driver hands the detector each photo of the chunk on the
+    # card; the per-image driver its one photo. `recorded` wraps the loop's
+    # last detector, the single-person one.
+    card_boxes = []
+    batched, _ = run_path(
+        "phase 5e", "run_predict_torch.py --detector keypoint --batch_size 2 "
+        f"--no_vis on a {CANVAS_HW[1]}x{CANVAS_HW[0]} photo",
+        lambda: predict_folder_batched(
+            **dict(built["cuda"], object_detect_fn=recorded,
+                   save_dir=os.path.join(workdir, "canvas_batched")),
+            batch_size=2, save_vis=False), expect=0)
+    check_results("phase 5e", batched, ["canvas.png"])
+    diffs = {k: float(np.abs(batched["canvas.png"][k]
+                             - per_image["canvas.png"][k]).max())
+             for k in ("pose_mode", "shape_mean", "cam")}
+    box_diff = float(np.abs(card_boxes[0] - per_image_boxes).max())
+    log(f"[phase 5e] batched vs per-image driver with the keypoint detector "
+        f"on the card: box max abs diff {box_diff} px, outputs max abs "
+        f"{diffs} (tol 1e-4)")
+    if box_diff > 1e-4 or max(diffs.values()) > 1e-4:
+        raise AssertionError("[phase 5e] the batched driver's detector path "
+                             "differs from the per-image driver's")
+    return worst
+
+
+def phase_batched(workdir):
+    """This slice's paths on the card: the batched --no_vis serving path
+    and the batched figures through the CLI, the per-image samples and
+    uncrop figures, both kernels on the two new renders' tables, uncropped
+    photos through the detectors, and the batched path's timings.
+
+    :return: dict of the readings for the kernels line
+    """
+    from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
+        build_parser, build_predictor, main)
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
+        IMAGENET_MEAN, IMAGENET_STD)
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
+        make_predict_core, predict_pose_mf_shape_gaussian_net)
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    from hierarchicalprobabilistic3dhuman_torch.utils.precision import bf16_apply
+    import cv2
+
+    photos = sorted(f for f in os.listdir(DEMO) if f.endswith(".png"))
+    image_dir = demo_folder(workdir, "demo12", photos)
+    base = ["--image_dir", image_dir, "--cropped_images", "--device", "cuda"]
+    shapes = {f: cv2.imread(os.path.join(DEMO, f)).shape for f in photos}
+    # The batched driver's chunks: each resolution in chunks of <= BATCH.
+    chunks = sum(-(-list(shapes.values()).count(s) // BATCH)
+                 for s in set(shapes.values()))
+    readings = {"launches": {}}
+    lap_start = [time.perf_counter()]
+
+    def lap(tag):
+        now = time.perf_counter()
+        log(f"[{tag}] took {now - lap_start[0]:.1f} s")
+        lap_start[0] = now
+
+    # (a) both kernels against their plain versions on the new renders'
+    # tables, as the path builds them.
+    kwargs = build_predictor(build_parser().parse_args(
+        base + ["--save_dir", os.path.join(workdir, "per_image12")]))
+    scenes, stack, hr = figure_scenes(kwargs, image_dir)
+    readings["attr_err"] = readings["box_err"] = 0
+    new_scenes = {}
+    for name, scene in scenes.items():
+        covered, attr_err, box_err, _ = hold_to_plain("phase 5a", name, scene)
+        readings["attr_err"] = max(readings["attr_err"], attr_err)
+        readings["box_err"] = max(readings["box_err"], box_err)
+        new_scenes[name] = (scene, covered)
+    lap("phase 5a")
+
+    # (b) the serving path: no render, outputs.npz, the per-image driver's
+    # outputs.
+    out_b = os.path.join(workdir, "no_vis")
+    results, readings["launches"]["no_vis"] = run_path(
+        "phase 5b", f"run_predict_torch.py --batch_size {BATCH} --no_vis on "
+        f"{len(photos)} demo photos",
+        lambda: main(base + ["--save_dir", out_b, "--batch_size", str(BATCH),
+                             "--no_vis"]), expect=0)
+    check_results("phase 5b", results, photos)
+    npz = np.load(os.path.join(out_b, "outputs.npz"))
+    if (npz.files != ["fnames", "pose_mode", "shape_mean", "cam",
+                      "per_vertex_uncertainty"]
+            or list(npz["fnames"]) != photos
+            or npz["pose_mode"].shape != (len(photos), 23, 3, 3)
+            or os.listdir(out_b) != ["outputs.npz"]):
+        raise AssertionError(f"outputs.npz: {npz.files}, "
+                             f"{npz['pose_mode'].shape}, {os.listdir(out_b)}")
+    per_image = predict_pose_mf_shape_gaussian_net(**kwargs)
+
+    def vs_per_image(tag, batched):
+        diffs = {k: max(float(np.abs(batched[f][k] - per_image[f][k]).max())
+                        for f in photos)
+                 for k in ("pose_mode", "shape_mean", "cam")}
+        log(f"[{tag}] batched vs per-image driver on the card, max abs "
+            f"{diffs} (tol 1e-4)")
+        if max(diffs.values()) > 1e-4:
+            raise AssertionError(f"[{tag}] batched outputs differ from the "
+                                 f"per-image driver's")
+
+    vs_per_image("phase 5b", results)
+    lap("phase 5b")
+
+    # (c) batched figures with the uncrop: one launch of each kernel a chunk.
+    out_c = os.path.join(workdir, "figures_b4")
+    results, readings["launches"]["figures_b4"] = run_path(
+        "phase 5c", f"run_predict_torch.py --batch_size {BATCH} "
+        f"--visualise_uncropped on {len(photos)} demo photos",
+        lambda: main(base + ["--save_dir", out_c, "--batch_size", str(BATCH),
+                             "--visualise_uncropped"]), expect=chunks)
+    check_results("phase 5c", results, photos)
+    vs_per_image("phase 5c", results)
+    for f in photos:
+        check_image(os.path.join(out_c, f), FIGURE_SHAPE)
+        check_image(os.path.join(out_c, f[:-4] + "_uncrop.png"), shapes[f])
+    lap("phase 5c")
+
+    # (d) the per-image samples and uncrop figures on one photo: two
+    # launches of each kernel (the 6 views, the 18 sample meshes).
+    one_dir = demo_folder(workdir, "demo1", photos[:1])
+    out_d = os.path.join(workdir, "samples")
+    results, readings["launches"]["samples"] = run_path(
+        "phase 5d", "run_predict_torch.py --visualise_samples "
+        "--visualise_uncropped on one demo photo",
+        lambda: main(["--image_dir", one_dir, "--save_dir", out_d,
+                      "--cropped_images", "--device", "cuda",
+                      "--visualise_samples", "--visualise_uncropped"]),
+        expect=2)
+    check_results("phase 5d", results, photos[:1])
+    stem = os.path.join(out_d, photos[0][:-4])
+    check_image(stem + ".png", FIGURE_SHAPE)
+    check_image(stem + "_uncrop.png", shapes[photos[0]])
+    check_image(stem + "_samples.png", (3 * FIGURE_WH, 6 * FIGURE_WH, 3))
+    lap("phase 5d")
+
+    # (e) uncropped photos through the detectors.
+    readings["detector_box_diff"] = phase_detector(workdir)
+    lap("phase 5e")
+
+    # (f) timings: the kernels at the new shapes, the folder runs, and a
+    # chunk's stages.
+    readings["kernels"] = {name: time_rasterizer("phase 5f", name, scene, cov)
+                           for name, (scene, cov) in new_scenes.items()}
+    readings["face_boxes"] = time_face_boxes(new_scenes, tag="phase 5f")
+    del new_scenes, scenes
+    kwargs["save_dir"] = os.path.join(workdir, "timing")
+    for b in (1, BATCH, 8):
+        ms, runs, steady = timed_folder_runs(kwargs, batch_size=b,
+                                             save_vis=False)
+        log(f"[phase 5f] --no_vis --batch_size {b}, {len(photos)} photos: "
+            f"{1e3 / ms:.2f} img/s over the whole run ({ms:.2f} ms/image, "
+            f"median of {[round(t, 2) for t in runs]}); the driver's "
+            f"steady state {steady} img/s")
+        readings[f"no_vis_b{b}_img_s"] = 1e3 / ms
+    hrnet_bf16 = bf16_apply(kwargs["hrnet"])
+    ms, runs, steady = timed_folder_runs(dict(kwargs, hrnet=hrnet_bf16),
+                                         batch_size=BATCH, save_vis=False)
+    log(f"[phase 5f] --no_vis --batch_size {BATCH} --bf16: {1e3 / ms:.2f} "
+        f"img/s over the whole run (median of {[round(t, 2) for t in runs]} "
+        f"ms/image); the driver's steady state {steady} img/s")
+    readings[f"no_vis_b{BATCH}_bf16_img_s"] = 1e3 / ms
+    # Figures on: one chunk of BATCH photos of one size, since the figure
+    # and PNG work on the host is per photo and batching does not share it.
+    chunk = [f for f in photos if shapes[f] == shapes[photos[-1]]][:BATCH]
+    ms, runs, _ = timed_folder_runs(
+        dict(kwargs, visualise_uncropped=True,
+             image_dir=demo_folder(workdir, "chunk", chunk)),
+        batch_size=BATCH, save_vis=True)
+    log(f"[phase 5f] figures on, --visualise_uncropped --batch_size {BATCH}, "
+        f"one chunk of {len(chunk)} {shapes[chunk[0]][1]}x"
+        f"{shapes[chunk[0]][0]} photos: {ms:.2f} ms/image (median of "
+        f"{[round(t, 2) for t in runs]})")
+    readings["figures_b4_ms_per_image"] = ms
+
+    device = kwargs["device"]
+    hrnet_batch_ms = median_ms(lambda: hrnet_predict(kwargs, stack))
+    cores = {"no_vis": make_predict_core(
+        kwargs["pose_shape_model"], kwargs["pose_shape_cfg"],
+        kwargs["smpl_model"], kwargs["edge_detect_model"], None,
+        kwargs["hrnet_cfg"], render_vis=False)}
+    cores["figures"] = make_predict_core(
+        kwargs["pose_shape_model"], kwargs["pose_shape_cfg"],
+        kwargs["smpl_model"], kwargs["edge_detect_model"],
+        TexturedIUVRenderer(device, img_wh=FIGURE_WH), kwargs["hrnet_cfg"])
+    generator = torch.Generator(device=device).manual_seed(0)
+    for name, core in cores.items():
+        def call(core=core):
+            return core(hr["cropped_image"], hr["joints2D"],
+                        hr["joints2Dconfs"], generator=generator)
+        core_ms = median_ms(call)
+        p = device_profile(call)
+        log(f"[phase 5f] a chunk of {BATCH}: HRNet keypoints "
+            f"{hrnet_batch_ms:.2f} ms, predict core ({name}) {core_ms:.2f} ms; "
+            f"profiled core call: wall {p['wall_ms']:.2f} ms, device busy "
+            f"{p['device_ms']:.2f} ms, {p['launches']} kernel launches")
+
+    # The bfloat16 HRNet on a chunk's crops: the bounds of the CPU test,
+    # and its time beside float32's.
+    mean = torch.as_tensor(IMAGENET_MEAN, device=device)[:, None, None]
+    std = torch.as_tensor(IMAGENET_STD, device=device)[:, None, None]
+    x = (hr["cropped_image"] - mean) / std
+    with torch.inference_mode():
+        f32 = kwargs["hrnet"](x).flatten(2)
+        b16 = hrnet_bf16(x).flatten(2)
+    scale = float(f32.abs().max())
+    diff = float((b16 - f32).abs().max())
+    gap = float((f32.amax(-1) - f32.gather(-1, b16.argmax(-1, keepdim=True))[..., 0])
+                .abs().max())
+    with torch.inference_mode():
+        f32_ms = median_ms(lambda: kwargs["hrnet"](x))
+        bf16_ms = median_ms(lambda: hrnet_bf16(x))
+    log(f"[phase 5f] bfloat16 HRNet on a chunk of {BATCH} crops: max abs diff "
+        f"{diff / scale:.4f} of the float32 max (tol 0.05), float32 value at "
+        f"bf16's argmax within {gap / scale:.4f} of the max (tol 0.02); "
+        f"HRNet-W48 alone {f32_ms:.2f} ms float32, {bf16_ms:.2f} ms bfloat16")
+    if diff > 0.05 * scale or gap > 0.02 * scale:
+        raise AssertionError("bfloat16 HRNet outside its bounds")
+    lap("phase 5f")
+    return readings
+
+
+def hrnet_predict(kwargs, stack):
+    """One batched HRNet keypoint call on a uint8 NHWC stack on the card."""
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
+        make_hrnet_batch_predictor)
+    return make_hrnet_batch_predictor(
+        kwargs["hrnet"], kwargs["hrnet_cfg"], kwargs["device"],
+        bbox_scale_factor=kwargs["pose_shape_cfg"].DATA.BBOX_SCALE_FACTOR)(stack)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -873,20 +1370,26 @@ def main():
     card = card_line()
     log(card)
 
-    scenes, attr_err, box_err = phase_kernel_vs_plain(device)
+    scenes, attr_err, box_err = timed_phase("phase 2", phase_kernel_vs_plain,
+                                            device)
     with tempfile.TemporaryDirectory() as workdir:
-        argv, launches = phase_main_path(workdir)
-        phase_core_cuda_vs_cpu()
-        timing = phase_timing(argv, scenes)
+        argv, launches = timed_phase("phase 3", phase_main_path, workdir)
+        timed_phase("phase 3", phase_core_cuda_vs_cpu)
+        timing = timed_phase("phase 4", phase_timing, argv, scenes)
+        del scenes
+        batched = phase_batched(workdir)
 
     boxes = timing["face_boxes"]
+    path_launches = {"per_image_3_photos": launches,
+                     **{f"{path}_{'1_photo' if path == 'samples' else '12_photos'}":
+                        counts for path, counts in batched["launches"].items()}}
     kernels = [{
         "name": "rasterize",
         "route": "cuda",
         "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:240",
         "launches": launches["rasterize"],
-        "max_abs_err": attr_err,
+        "max_abs_err": max(attr_err, batched["attr_err"]),
         "ms": timing["predict"]["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["predict"]["bound_ms"],
@@ -896,14 +1399,21 @@ def main():
         "bound_ms_eval": timing["eval"]["bound_ms"],
         "ms_train": timing["train"]["kernel_ms"],
         "bound_ms_train": timing["train"]["bound_ms"],
+        "ms_batched": batched["kernels"]["batched"]["kernel_ms"],
+        "bound_ms_batched": batched["kernels"]["batched"]["bound_ms"],
+        "bound_by_batched": batched["kernels"]["batched"]["bound_by"],
+        "ms_samples": batched["kernels"]["samples"]["kernel_ms"],
+        "bound_ms_samples": batched["kernels"]["samples"]["bound_ms"],
+        "bound_by_samples": batched["kernels"]["samples"]["bound_by"],
         "device_launches_per_call": timing["device_launches_per_call"],
+        "launches_by_path": {k: v["rasterize"] for k, v in path_launches.items()},
     }, {
         "name": "face_boxes",
         "route": "cuda",
         "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:97",
         "launches": launches["face_boxes"],
-        "max_abs_err": box_err,
+        "max_abs_err": max(box_err, batched["box_err"]),
         "ms": boxes["predict"]["kernel_ms"],
         "plain_ms": boxes["plain_ms"],
         "bound_ms": boxes["predict"]["bound_ms"],
@@ -913,8 +1423,16 @@ def main():
         "bound_ms_eval": boxes["eval"]["bound_ms"],
         "ms_train": boxes["train"]["kernel_ms"],
         "bound_ms_train": boxes["train"]["bound_ms"],
+        "ms_batched": batched["face_boxes"]["batched"]["kernel_ms"],
+        "bound_ms_batched": batched["face_boxes"]["batched"]["bound_ms"],
+        "ms_samples": batched["face_boxes"]["samples"]["kernel_ms"],
+        "bound_ms_samples": batched["face_boxes"]["samples"]["bound_ms"],
+        "launches_by_path": {k: v["face_boxes"] for k, v in path_launches.items()},
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
+    log(f"[phase 5] readings " + json.dumps(
+        {k: v for k, v in batched.items()
+         if k not in ("kernels", "face_boxes", "launches")}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ Counterpart of hierarchicalprobabilistic3dhuman_tpu/ops/resample.py
 affine maps INPUT pixel coords (x horizontal, y vertical, centres at
 integers, like OpenCV) to OUTPUT pixel coords as `out = A @ [x, y, 1]`;
 each output pixel samples the inverse-mapped source point with bilinear tent
-weights, zero outside the frame.
+weights or the nearest source pixel, and out-of-frame samples take a
+constant pad value.
 
 `F.grid_sample` is not used: its pixel-centre convention differs.
 """
@@ -26,26 +27,36 @@ def invert_affine(affine_trans):
     return torch.cat([A_inv, t_inv[..., None]], dim=-1)
 
 
-def _interp_matrix(src, size):
-    """1-D bilinear weights W[out, in] (tent), so resampled = W @ signal.
+def _interp_matrix(src, size, mode):
+    """1-D interpolation weights W[out, in], so resampled = W @ signal.
+
+    Bilinear: tent weights. Nearest: a one-hot at round(src), which rounds
+    half to even as jnp.round does.
 
     :param src: (B, N_out) fractional source coordinate per output index
     :return: (B, N_out, size); rows for out-of-range sources sum below 1
     """
     grid = torch.arange(size, dtype=src.dtype, device=src.device)
-    return torch.clamp(1.0 - torch.abs(src[..., None] - grid), min=0.0)
+    if mode == "bilinear":
+        return torch.clamp(1.0 - torch.abs(src[..., None] - grid), min=0.0)
+    if mode == "nearest":
+        return (torch.round(src)[..., None] == grid).to(src.dtype)
+    raise ValueError(f"mode must be 'bilinear' or 'nearest', got {mode!r}")
 
 
-def affine_resample(images, affine_trans, out_hw):
-    """Warp a batch of images by scale+translate forward affines (bilinear).
+def affine_resample(images, affine_trans, out_hw, mode="bilinear", pad_val=0.0):
+    """Warp a batch of images by scale+translate forward affines.
 
     Every transform on the port's path is axis-aligned (the off-diagonal
     terms are zero), so the warp is separable: out = Wy @ img @ Wx^T. The
-    off-diagonal terms are not read.
+    off-diagonal terms are not read. Out-of-frame samples have a total
+    weight below 1; the rest of it goes to `pad_val`.
 
     :param images: (B, C, H, W)
     :param affine_trans: (B, 2, 3) forward transform (input px -> output px)
     :param out_hw: (OH, OW)
+    :param mode: 'bilinear' or 'nearest'
+    :param pad_val: constant for out-of-frame samples
     :return: (B, C, OH, OW)
     """
     H, W = images.shape[-2:]
@@ -55,9 +66,13 @@ def affine_resample(images, affine_trans, out_hw):
     ys = torch.arange(OH, dtype=affine_trans.dtype, device=images.device)
     src_x = inv[:, 0, 0, None] * xs + inv[:, 0, 2, None]     # (B, OW)
     src_y = inv[:, 1, 1, None] * ys + inv[:, 1, 2, None]     # (B, OH)
-    Wx = _interp_matrix(src_x, W)                            # (B, OW, W)
-    Wy = _interp_matrix(src_y, H)                            # (B, OH, H)
-    return Wy[:, None] @ images @ Wx.transpose(-1, -2)[:, None]
+    Wx = _interp_matrix(src_x, W, mode)                      # (B, OW, W)
+    Wy = _interp_matrix(src_y, H, mode)                      # (B, OH, H)
+    out = Wy[:, None] @ images @ Wx.transpose(-1, -2)[:, None]
+    if pad_val != 0.0:
+        wsum = Wy.sum(-1)[:, :, None] * Wx.sum(-1)[:, None, :]  # (B, OH, OW)
+        out = out + pad_val * (1.0 - wsum[:, None])
+    return out
 
 
 def transform_points(affine_trans, points):

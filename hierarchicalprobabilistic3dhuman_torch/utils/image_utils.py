@@ -1,15 +1,40 @@
-"""Cropping around explicit boxes and compositing, in torch.
+"""Bounding boxes, cropping and uncropping around explicit boxes, and
+compositing, in torch.
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/utils/image_utils.py
-(batch_add_rgb_background :46, batch_crop_affine :137) for the predict path:
-explicit bounding boxes, RGB and 2D joints. Box centres are (vertical,
-horizontal); affines act on (x=horizontal, y=vertical) pixel coords.
+(convert_bbox_corners_to_centre_hw :26, convert_bbox_centre_hw_to_corners
+:38, batch_add_rgb_background :46, uncrop_affine_from_bbox :122,
+batch_crop_affine :137, batch_uncrop_affine :236) for the predict path:
+explicit bounding boxes, RGB, IUV, segmentations and 2D joints. Box centres
+are (vertical, horizontal); affines act on (x=horizontal, y=vertical) pixel
+coords.
 """
 
 import torch
 
 from hierarchicalprobabilistic3dhuman_torch.ops.resample import (
     affine_resample, transform_points)
+
+
+def convert_bbox_corners_to_centre_hw(bbox_corners):
+    """[x1, y1, x2, y2] (vert, hor) corners -> centre (vert, hor), height, width.
+
+    :param bbox_corners: (..., 4)
+    """
+    centre = torch.stack([(bbox_corners[..., 0] + bbox_corners[..., 2]) / 2.0,
+                          (bbox_corners[..., 1] + bbox_corners[..., 3]) / 2.0],
+                         dim=-1)
+    heights = bbox_corners[..., 2] - bbox_corners[..., 0]
+    widths = bbox_corners[..., 3] - bbox_corners[..., 1]
+    return centre, heights, widths
+
+
+def convert_bbox_centre_hw_to_corners(centre, height, width):
+    """Centre (vert, hor) + height/width -> [x1, y1, x2, y2]."""
+    return torch.stack([centre[..., 0] - height / 2.0,
+                        centre[..., 1] - width / 2.0,
+                        centre[..., 0] + height / 2.0,
+                        centre[..., 1] + width / 2.0], dim=-1)
 
 
 def batch_add_rgb_background(backgrounds, rgb, seg):
@@ -43,6 +68,18 @@ def crop_affine_from_bbox(bbox_centres, bbox_heights, bbox_widths, output_wh):
                         torch.stack([zeros, a11, ty], dim=-1)], dim=1)
 
 
+def uncrop_affine_from_bbox(bbox_centres, bbox_heights, bbox_widths, output_wh):
+    """Forward affine mapping a cropped image back into the original frame."""
+    out_w, out_h = output_wh
+    a00 = bbox_widths / out_w
+    a11 = bbox_heights / out_h
+    tx = bbox_centres[:, 1] - a00 * (out_w * 0.5)
+    ty = bbox_centres[:, 0] - a11 * (out_h * 0.5)
+    zeros = torch.zeros_like(a00)
+    return torch.stack([torch.stack([a00, zeros, tx], dim=-1),
+                        torch.stack([zeros, a11, ty], dim=-1)], dim=1)
+
+
 def batch_crop_affine(output_wh, bbox_centres, bbox_heights, bbox_widths,
                       rgb=None, joints2D=None, orig_scale_factor=1.2):
     """Crop-and-resize around explicit person boxes.
@@ -54,6 +91,8 @@ def batch_crop_affine(output_wh, bbox_centres, bbox_heights, bbox_widths,
     :param bbox_centres: (B, 2) [vert, hor]
     :param bbox_heights, bbox_widths: (B,)
     :return: dict with 'rgb' (B, 3, h, w) and/or 'joints2D' (B, K, 2), plus
+             the boxes as cropped ('bbox_centres', 'bbox_heights',
+             'bbox_widths', after the aspect fix and scale factor) and
              'affine_trans' (B, 2, 3)
     """
     out_w, out_h = int(output_wh[0]), int(output_wh[1])
@@ -67,9 +106,38 @@ def batch_crop_affine(output_wh, bbox_centres, bbox_heights, bbox_widths,
     bbox_widths = bbox_widths * orig_scale_factor
     affine = crop_affine_from_bbox(bbox_centres, bbox_heights, bbox_widths,
                                    (float(out_w), float(out_h)))
-    out = {"affine_trans": affine}
+    out = {"bbox_centres": bbox_centres, "bbox_heights": bbox_heights,
+           "bbox_widths": bbox_widths, "affine_trans": affine}
     if rgb is not None:
         out["rgb"] = affine_resample(rgb, affine, (out_h, out_w))
     if joints2D is not None:
         out["joints2D"] = transform_points(affine, joints2D)
+    return out
+
+
+def batch_uncrop_affine(output_wh, uncrop_wh, bbox_centres, bbox_heights,
+                        bbox_widths, iuv=None, rgb=None, seg=None,
+                        out_of_frame_pad_val=0.0):
+    """Inverse of batch_crop_affine: paste crops back into the original frame
+    (rgb bilinear; iuv and seg nearest, iuv padded with
+    `out_of_frame_pad_val`).
+
+    :param output_wh: (w, h) of the cropped images
+    :param uncrop_wh: (w, h) of the original frame
+    :param bbox_centres: (B, 2) [vert, hor]; bbox_heights, bbox_widths (B,)
+    :return: dict with 'iuv' (B, 3, h, w), 'rgb' (B, 3, h, w), 'seg'
+             (B, h, w) for the inputs given
+    """
+    affine = uncrop_affine_from_bbox(bbox_centres, bbox_heights, bbox_widths,
+                                     (float(output_wh[0]), float(output_wh[1])))
+    oh, ow = int(uncrop_wh[1]), int(uncrop_wh[0])
+    out = {}
+    if iuv is not None:
+        out["iuv"] = affine_resample(iuv, affine, (oh, ow), mode="nearest",
+                                     pad_val=out_of_frame_pad_val)
+    if rgb is not None:
+        out["rgb"] = affine_resample(rgb, affine, (oh, ow))
+    if seg is not None:
+        out["seg"] = affine_resample(seg[:, None], affine, (oh, ow),
+                                     mode="nearest")[:, 0]
     return out

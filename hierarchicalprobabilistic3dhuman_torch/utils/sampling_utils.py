@@ -1,14 +1,25 @@
-"""Per-vertex uncertainty by sampling, in torch.
+"""Per-vertex uncertainty by sampling, and sample meshes sorted by 2D joint
+error, in torch.
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/utils/sampling_utils.py
-::compute_vertex_uncertainties_by_sampling :21 on the predict path, which
-samples poses and keeps the mean shape (use_mean_shape=True there).
+(compute_vertex_uncertainties_by_sampling :21 on the predict path, which
+samples poses and keeps the mean shape (use_mean_shape=True there), and
+joints2D_error_sorted_verts_sampling :84).
 """
 
+import numpy as np
 import torch
 
 from hierarchicalprobabilistic3dhuman_torch.ops.bingham_sampling import (
     pose_matrix_fisher_sampling)
+from hierarchicalprobabilistic3dhuman_torch.utils.cam_utils import (
+    orthographic_project)
+from hierarchicalprobabilistic3dhuman_torch.utils.joints2d_utils import (
+    undo_keypoint_normalisation)
+from hierarchicalprobabilistic3dhuman_torch.utils.label_conversions import (
+    ALL_JOINTS_TO_COCO_MAP, convert_heatmaps_to_2Djoints_coordinates)
+from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
+    aa_rotate_translate_points)
 
 
 def compute_vertex_uncertainties_by_sampling(pose_U, pose_S, pose_V,
@@ -42,3 +53,32 @@ def compute_vertex_uncertainties_by_sampling(pose_U, pose_S, pose_V,
     avg_distance = torch.linalg.vector_norm(verts - mean_verts, dim=-1).mean(dim=1)
     return avg_distance, verts, joints
 
+
+def joints2D_error_sorted_verts_sampling(pred_vertices_samples,
+                                         pred_joints_samples,
+                                         input_joints2D_heatmaps,
+                                         pred_cam_wp):
+    """Sort sample meshes by their largest visible-joint 2D reprojection
+    error, ascending. Invisible joints count as -inf, so a heatmap with no
+    visible joint leaves every error at -inf and the order as drawn: the
+    sort is stable, as jnp.argsort is.
+
+    :param pred_vertices_samples: (N, 6890, 3)
+    :param pred_joints_samples: (N, 90, 3)
+    :param input_joints2D_heatmaps: (1, 17, D, D)
+    :param pred_cam_wp: (1, 3)
+    :return: (N, 6890, 3) sorted ascending by error
+    """
+    N = pred_vertices_samples.shape[0]
+    coco = pred_joints_samples[:, ALL_JOINTS_TO_COCO_MAP, :]
+    coco = aa_rotate_translate_points(coco, [1.0, 0.0, 0.0], np.pi,
+                                      [0.0, 0.0, 0.0])
+    j2d = orthographic_project(coco, pred_cam_wp.expand(N, 3))
+    j2d = undo_keypoint_normalisation(j2d, input_joints2D_heatmaps.shape[-1])
+    input_j2d, input_vis = convert_heatmaps_to_2Djoints_coordinates(
+        input_joints2D_heatmaps, eps=1e-6)                  # (1, 17, 2), (1, 17)
+    err = torch.linalg.vector_norm(j2d - input_j2d, dim=-1)  # (N, 17)
+    err = torch.where(input_vis, err, -torch.inf)
+    max_err = torch.amax(err, dim=-1)                        # (N,)
+    order = torch.argsort(max_err, stable=True)
+    return pred_vertices_samples[order]

@@ -1,6 +1,7 @@
-"""Predict with the PyTorch/CUDA port (cropped images, figures on).
+"""Predict with the PyTorch/CUDA port (the flags of run_predict.py).
 
 python run_predict_torch.py --image_dir demo/ --save_dir out/ --cropped_images
+python run_predict_torch.py --image_dir photos/ --save_dir out/ --batch_size 8 --no_vis
 python run_predict_torch.py ... --device cpu      # plain versions, no card
 """
 

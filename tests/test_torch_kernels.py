@@ -118,6 +118,8 @@ def _scene_tables(scene, device, hw):
                  larger-than-image faces
       eval       1 mesh, A = 3 (256^2)
       batch8     8 perspective meshes, A = 12 (256^2)
+      batched4   the batched figure's render of 4 images: 24 meshes, A = 12
+      samples    the samples figure's 18 meshes, A = 12
     """
     if scene == "triangles":
         return _triangle_tables(device, hw)
@@ -127,6 +129,10 @@ def _scene_tables(scene, device, hw):
         return chip_smoke.sliver_scene(device).tables
     if scene == "eval":
         return chip_smoke.eval_scene(device).tables
+    if scene == "batched4":
+        return chip_smoke.predict_scene(device, img_wh=hw[0], batch=4).tables
+    if scene == "samples":
+        return chip_smoke.samples_scene(device, img_wh=hw[0]).tables
     return chip_smoke.train_scene(device, batch=8).tables
 
 
@@ -136,7 +142,9 @@ def _scene_tables(scene, device, hw):
                                       ("smpl", (100, 90)),
                                       ("sliver", chip_smoke.SLIVER_HW),
                                       ("eval", (256, 256)),
-                                      ("batch8", (256, 256))])
+                                      ("batch8", (256, 256)),
+                                      ("batched4", (512, 512)),
+                                      ("samples", (512, 512))])
 def test_kernel_matches_plain_on_card(cuda_device, scene, hw):
     tables = _scene_tables(scene, cuda_device, hw)
     before = trc.rasterize_packed_cuda.launches
@@ -167,7 +175,9 @@ def test_kernel_is_deterministic_on_card(cuda_device, scene, hw):
 @pytest.mark.parametrize("scene,hw", [("triangles", (64, 64)),
                                       ("smpl", (100, 90)),
                                       ("sliver", chip_smoke.SLIVER_HW),
-                                      ("batch8", (256, 256))])
+                                      ("batch8", (256, 256)),
+                                      ("batched4", (512, 512)),
+                                      ("samples", (512, 512))])
 def test_face_boxes_kernel_equals_plain_on_card(cuda_device, scene, hw):
     """Tolerance 0: the kernel rounds as the torch ops do. The scenes'
     tables were packed on the card, so their boxes are the kernel's."""
@@ -175,6 +185,10 @@ def test_face_boxes_kernel_equals_plain_on_card(cuda_device, scene, hw):
         built = chip_smoke.sliver_scene(cuda_device)
     elif scene == "batch8":
         built = chip_smoke.train_scene(cuda_device, batch=8)
+    elif scene == "batched4":
+        built = chip_smoke.predict_scene(cuda_device, img_wh=hw[0], batch=4)
+    elif scene == "samples":
+        built = chip_smoke.samples_scene(cuda_device, img_wh=hw[0])
     elif scene == "triangles":
         built = chip_smoke.triangle_scene(cuda_device)
     else:
