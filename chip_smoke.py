@@ -46,7 +46,21 @@ Phases (any failure exits non-zero before the final line):
      kernels at the two new shapes beside their bounds, --no_vis img/s at
      batch 1, 4 and 8 and with the bfloat16 HRNet, ms/image with figures at
      batch 4 on one chunk, a chunk's HRNet and core times and launches, and
-     the bfloat16 HRNet against float32. Each phase logs its wall time.
+     the bfloat16 HRNet against float32;
+  6. the evaluation entry point at full width (ResNet-18 on the 256^2 proxy,
+     10 samples, SSP-3D's six metrics, random weights saved as a reference
+     .tar so --svd_impl auto takes the LAPACK-sign SVD, synthetic SMPL), on
+     synthetic SSP-3D and 3DPW folders of the 512^2 demo photos (16
+     frames): (a) both kernels against their plain versions on one batch's
+     silhouette tables, 8 mode meshes and 80 sample meshes at 256^2, A=3;
+     (b) `run_evaluate_torch.py --dataset ssp3d` at batch 8 and at batch 1
+     (4 frames), two launches of each kernel a batch, finite metrics and
+     per-frame files in dataset order; (c) the eval step on the card against
+     the CPU (3D metrics within 1e-4 relative, IOUs within 2e-3); (d)
+     `--dataset 3dpw`, no launch; (e) frames/s at batch 1 and 8, one step's
+     profile, the predictor with each 3x3 SVD, the kernels at the two eval
+     shapes beside their bounds; (f) the LAPACK-sign SVD on the card
+     against the CPU on 2,000 matrices. Each phase logs its wall time.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -244,6 +258,36 @@ def eval_scene(device, seed=1):
     iuv = TexturedIUVRenderer(device, img_wh=256).verts_iuv[None]
     return make_scene(views.screen[:1].contiguous(), views.faces, iuv,
                       (256, 256))
+
+
+def silhouette_scene(device, batch=8, img_wh=256, seed=7):
+    """The evaluation's silhouette render: `batch` synthetic-SMPL meshes
+    with seeded poses and shapes, flipped and placed as the eval step places
+    them, packed by the renderer's silhouette mode: A = 3 (IUV).
+
+    :return: Scene with screen (batch, 7829, 3)
+    """
+    from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
+        aa_rotate_translate_points)
+
+    rng = np.random.RandomState(seed)
+
+    def tensor(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    verts = SMPL.synthetic(device)(betas=tensor(rng.randn(batch, 10)),
+                                   body_pose=tensor(rng.randn(batch, 69) * 0.3),
+                                   global_orient=tensor(rng.randn(batch, 3) * 0.2)
+                                   )["vertices"]
+    renderer = TexturedIUVRenderer(device, img_wh=img_wh, render_rgb=False)
+    screen, iuv = renderer.raster_inputs(
+        aa_rotate_translate_points(verts, (1.0, 0.0, 0.0), np.pi, (0.0, 0.0, 0.0)),
+        tensor(np.c_[rng.randn(batch, 2) * 0.05, np.full(batch, 2.5)]),
+        tensor(np.repeat(rng.uniform(0.7, 1.0, (batch, 1)), 2, axis=1)))
+    return make_scene(screen, renderer.faces, iuv, (img_wh, img_wh))
 
 
 def train_scene(device, batch=72, img_wh=256, focal_length=300.0, seed=2):
@@ -798,6 +842,17 @@ def rasterizer_device_launches(tables, calls=16, attempts=5):
     return None
 
 
+def once_ms(fn):
+    """CUDA-event time of one call of fn(), in ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def host_and_card_ms(fn, repeats=5, inner=20):
     """Per call of fn(), on the host's clock, medians over `repeats` of
     `inner` calls in a row from an idle card: the time the host takes to
@@ -1341,6 +1396,426 @@ def phase_batched(workdir):
     return readings
 
 
+# Phase 6: the evaluation's batch, its sample count (the CLI's default), and
+# the demo photos of 512^2 that make the synthetic datasets' frames.
+EVAL_BATCH = 8
+EVAL_SAMPLES = 10
+# The proxy and render size of the eval step's card-vs-CPU check.
+CARD_VS_CPU_WH = 32
+SSP3D_METRICS = ("PVE-PA", "PVE-T-SC", "silhouette-IOU", "joints2D-L2E",
+                 "joints2Dsamples-L2E", "silhouettesamples-IOU")
+FRAME_FILES = ("fname_per_frame", "pose_per_frame", "shape_per_frame",
+               "cam_per_frame")
+
+
+def eval_photos(repeat=2):
+    """The 512^2 demo photos (8), `repeat` times over, as RGB arrays."""
+    import cv2
+    photos = []
+    for f in sorted(os.listdir(DEMO)):
+        rgb = cv2.cvtColor(cv2.imread(os.path.join(DEMO, f)), cv2.COLOR_BGR2RGB)
+        if rgb.shape[:2] == (512, 512):
+            photos.append(rgb)
+    return photos * repeat
+
+
+def reference_checkpoint(path, seed=0):
+    """The distribution predictor at the configuration's full width, random
+    weights from `seed`, saved as the reference's training saves it (numpy
+    scalars beside the state dict), so --svd_impl auto takes `lapack`."""
+    from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
+        PoseMFShapeGaussianNet)
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
+    model = init_weights(PoseMFShapeGaussianNet(), torch.Generator().manual_seed(seed))
+    torch.save({"best_model_state_dict": model.state_dict(),
+                "epoch": np.int64(0),
+                "best_epoch_val_metrics": {"PVE-PA": np.float64(0.0)}}, path)
+    return path
+
+
+def eval_argv(dataset, root, weights, save, batch, device, *extra):
+    return ["--dataset", dataset, "--dataset_path", root, "--pose_shape_weights",
+            weights, "--save_path", save, "--batch_size", str(batch),
+            "--device", device, *extra]
+
+
+def check_eval_outputs(tag, metrics, names, save, n_frames):
+    """Finite metrics of the dataset's set, IOUs in [0, 1], and the four
+    per-frame files of n_frames frames in dataset order."""
+    if sorted(metrics) != sorted(names):
+        raise AssertionError(f"[{tag}] metrics {sorted(metrics)}")
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v)
+           or ("IOU" in k and not 0.0 <= v <= 1.0)}
+    fnames = list(np.load(os.path.join(save, "fname_per_frame.npy")))
+    shapes = {f: np.load(os.path.join(save, f + ".npy")).shape for f in FRAME_FILES}
+    log(f"[{tag}] metrics {json.dumps({k: round(v, 6) for k, v in metrics.items()})};"
+        f" per-frame files {shapes}")
+    if (bad or fnames != [f"frame_{i:03d}.png" for i in range(n_frames)]
+            or shapes["pose_per_frame"] != (n_frames, 24, 3, 3)):
+        raise AssertionError(f"[{tag}] bad metrics {bad} or per-frame files "
+                             f"{fnames[:4]}..., {shapes}")
+
+
+class RecordingRenderer:
+    """The silhouette renderer, recording the meshes each call hands it."""
+
+    def __init__(self, renderer):
+        self.renderer = renderer
+        self.calls = []
+
+    def __call__(self, vertices, cam_t, orthographic_scale):
+        self.calls.append((vertices, cam_t, orthographic_scale))
+        return self.renderer(vertices, cam_t=cam_t,
+                             orthographic_scale=orthographic_scale)
+
+
+def eval_batch(kwargs):
+    """The first batch of the evaluator's dataset as the driver hands it to
+    the step, and the step's other arguments (draws from a CPU generator,
+    seed 0, so the card and the CPU can take the same ones).
+
+    :return: args(device) -> the step's arguments on that device"""
+    from hierarchicalprobabilistic3dhuman_torch.data.loader import DataLoader
+    from hierarchicalprobabilistic3dhuman_torch.evaluate.evaluate_pose_mf_shape_gaussian_net import (
+        gender_codes, sample_draws)
+    batch = next(iter(DataLoader(kwargs["eval_dataset"], batch_size=EVAL_BATCH,
+                                 num_workers=0)))
+    draws = sample_draws(torch.Generator().manual_seed(0), EVAL_BATCH,
+                         EVAL_SAMPLES, 10, "cpu")
+
+    def args(dev):
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return ({k: v.to(dev) for k, v in draws.items()}, t(batch["image"]),
+                t(batch["heatmaps"]), t(batch["pose"]), t(batch["shape"]),
+                torch.as_tensor(gender_codes(batch["gender"]), device=dev),
+                t(batch["keypoints"]), t(batch["silhouette"]))
+    return args
+
+
+def make_step(kwargs, renderer=None):
+    """The evaluator's mixed-gender step (the SSP-3D batch alternates m/f)."""
+    from hierarchicalprobabilistic3dhuman_torch.evaluate.evaluate_pose_mf_shape_gaussian_net import (
+        make_eval_step)
+    from hierarchicalprobabilistic3dhuman_torch.metrics.metric_sums import (
+        make_eval_frame_metrics_fn)
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    cfg = kwargs["pose_shape_cfg"]
+    if renderer is None:
+        renderer = TexturedIUVRenderer(kwargs["device"],
+                                       img_wh=cfg.DATA.PROXY_REP_SIZE,
+                                       render_rgb=False)
+    return make_eval_step(
+        kwargs["pose_shape_model"], kwargs["smpl_neutral"], kwargs["smpl_male"],
+        kwargs["smpl_female"], kwargs["edge_detect_model"], cfg, EVAL_SAMPLES,
+        True, True, True, renderer,
+        frame_metrics_fn=make_eval_frame_metrics_fn(list(SSP3D_METRICS)))
+
+
+def timed_eval_runs(kwargs, batch_size, runs=2):
+    """The driver over the folder: one warm-up and `runs` timed runs on the
+    host clock, each ending in a synchronize, its printing kept out of the
+    log. :return: median frames/s, the runs' frames/s"""
+    from hierarchicalprobabilistic3dhuman_torch.evaluate.evaluate_pose_mf_shape_gaussian_net import (
+        evaluate_pose_mf_shape_gaussian_net)
+    n = len(kwargs["eval_dataset"]) // batch_size * batch_size
+    rates = []
+    for i in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            evaluate_pose_mf_shape_gaussian_net(**dict(kwargs, batch_size=batch_size))
+        torch.cuda.synchronize()
+        if i:
+            rates.append(n / (time.perf_counter() - t0))
+    return statistics.median(rates), rates
+
+
+def phase_eval(workdir, device):
+    """The evaluation entry point on the card: (a) both kernels against
+    their plain versions on one SSP-3D batch's silhouette tables; (b)
+    run_evaluate_torch.py on a synthetic SSP-3D folder at batch 8 and 1,
+    two launches of each kernel a batch; (c) the eval step on the card
+    against the CPU; (d) 3DPW, no launch; (e) timings; (f) the LAPACK-sign
+    SVD on the card against the CPU.
+
+    :return: dict of the readings for the kernels line
+    """
+    from hierarchicalprobabilistic3dhuman_torch.cli.evaluate import (
+        build_evaluator, build_parser, main)
+    from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import svd3x3_gesdd
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        face_boxes_plain, face_vertices, rasterize_packed_plain)
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+
+    readings = {"launches": {}}
+    lap_start = [time.perf_counter()]
+
+    def lap(tag):
+        now = time.perf_counter()
+        log(f"[{tag}] took {now - lap_start[0]:.1f} s")
+        lap_start[0] = now
+
+    photos = eval_photos()
+    ssp3d = write_ssp3d_folder(os.path.join(workdir, "ssp3d"), photos)
+    pw3d = write_3dpw_folder(os.path.join(workdir, "3dpw"), photos)
+    weights = reference_checkpoint(os.path.join(workdir, "model.tar"))
+
+    def evaluator(dataset, root, batch, on=device, *extra):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return build_evaluator(build_parser().parse_args(eval_argv(
+                dataset, root, weights, os.path.join(workdir, "eval_timing"),
+                batch, str(on), *extra)))
+
+    # (a) both kernels against their plain versions on the tables of one
+    # batch's two renders: B mode meshes, then B * N sample meshes.
+    card = evaluator("ssp3d", ssp3d, EVAL_BATCH)
+    if card["pose_shape_model"].svd_impl != "lapack":
+        raise AssertionError("--svd_impl auto did not take lapack for a .tar")
+    batch_args = eval_batch(card)
+    wh = card["pose_shape_cfg"].DATA.PROXY_REP_SIZE
+    silhouettes = TexturedIUVRenderer(device, img_wh=wh, render_rgb=False)
+    recorder = RecordingRenderer(silhouettes)
+    make_step(card, renderer=recorder)(*batch_args(device))
+    scenes = {}
+    readings["attr_err"] = readings["box_err"] = 0
+    for name, (verts, cam_t, scale) in zip(("eval_mode", "eval_samples"),
+                                           recorder.calls):
+        screen, attrs = silhouettes.raster_inputs(verts, cam_t, scale)
+        scene = make_scene(screen, silhouettes.faces, attrs, (wh, wh))
+        covered, attr_err, box_err, _ = hold_to_plain("phase 6a", name, scene)
+        readings["attr_err"] = max(readings["attr_err"], attr_err)
+        readings["box_err"] = max(readings["box_err"], box_err)
+        scenes[name] = (scene, covered)
+        # The plain version, warm from the comparison: one call, as it takes
+        # seconds at these shapes (it tests every pixel against every face).
+        readings[f"plain_ms_{name}"] = once_ms(
+            lambda: rasterize_packed_plain(scene.tables))
+        log(f"[phase 6a] rasterize {name}: plain version "
+            f"{readings[f'plain_ms_{name}']:.2f} ms (one call)")
+    lap("phase 6a")
+
+    # (b) the entry point: 16 frames at batch 8 (2 batches), 4 at batch 1.
+    ssp3d_4 = write_ssp3d_folder(os.path.join(workdir, "ssp3d_4"), photos[:4])
+    for frames, batch, root in ((len(photos), EVAL_BATCH, ssp3d), (4, 1, ssp3d_4)):
+        save = os.path.join(workdir, f"eval_b{batch}")
+        metrics, launches = run_path(
+            "phase 6b", f"run_evaluate_torch.py --dataset ssp3d --batch_size "
+            f"{batch} on {frames} frames",
+            lambda: main(eval_argv("ssp3d", root, weights, save, batch,
+                                   str(device))),
+            expect=2 * frames // batch)
+        check_eval_outputs("phase 6b", metrics, SSP3D_METRICS, save, frames)
+        readings["launches"][f"eval_ssp3d_{frames}_frames_b{batch}"] = launches
+    lap("phase 6b")
+
+    # (c) the step on the card and on the CPU: same weights, batch, draws.
+    # The renders at CARD_VS_CPU_WH^2: the plain rasterizer tests every
+    # pixel against every face, a few seconds a mesh at 256^2 on the host.
+    cfg = os.path.join(workdir, "card_vs_cpu.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"DATA:\n  PROXY_REP_SIZE: {CARD_VS_CPU_WH}\n")
+    small = {dev: evaluator("ssp3d", ssp3d, EVAL_BATCH, dev, "--pose_shape_cfg", cfg)
+             for dev in (device, "cpu")}
+    small_args = eval_batch(small["cpu"])
+    outs = {dev: make_step(kw)(*small_args(kw["device"]))["frame_metrics"]
+            for dev, kw in (("card", small[device]), ("cpu", small["cpu"]))}
+    worst = {"3d": 0.0, "iou": 0.0}
+    for k in outs["cpu"]:
+        a = outs["card"][k].double().cpu()
+        b = outs["cpu"][k].double()
+        if k.startswith("num_"):
+            continue
+        kind = "iou" if "IOU" in k else "3d"
+        err = float((a - b).abs().max() / (1.0 if kind == "iou"
+                                            else b.abs().max().clamp(min=1e-12)))
+        worst[kind] = max(worst[kind], err)
+    counts = {dev: {k: float(v.sum()) for k, v in o.items()
+                    if k.startswith("num_samples")} for dev, o in outs.items()}
+    sample_iou = {dev: c["num_samples_true_positives"] / (
+        c["num_samples_true_positives"] + c["num_samples_false_positives"]
+        + c["num_samples_false_negatives"]) for dev, c in counts.items()}
+    worst["iou"] = max(worst["iou"], abs(sample_iou["card"] - sample_iou["cpu"]))
+    log(f"[phase 6c] eval step, batch of {EVAL_BATCH}, {EVAL_SAMPLES} samples, "
+        f"{CARD_VS_CPU_WH}^2, card vs CPU: 3D and 2D "
+        f"metrics max rel diff {worst['3d']:.3e} (tol 1e-4); IOUs max abs diff "
+        f"{worst['iou']:.3e} (tol 2e-3; samples IOU card {sample_iou['card']:.6f}"
+        f", CPU {sample_iou['cpu']:.6f})")
+    if worst["3d"] > 1e-4 or worst["iou"] > 2e-3:
+        raise AssertionError("[phase 6c] the eval step on the card disagrees "
+                             "with the CPU")
+    readings["card_vs_cpu"] = worst
+    del small, outs
+    lap("phase 6c")
+
+    # (d) 3DPW: no silhouette metric, no rasterizer launch.
+    save = os.path.join(workdir, "eval_3dpw")
+    metrics, launches = run_path(
+        "phase 6d", f"run_evaluate_torch.py --dataset 3dpw --batch_size "
+        f"{EVAL_BATCH} on {len(photos)} frames",
+        lambda: main(eval_argv("3dpw", pw3d, weights, save, EVAL_BATCH,
+                               str(device))), expect=0)
+    pw3d_metrics = ['PVE', 'PVE-SC', 'PVE-PA', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC',
+                    'MPJPE-PA', 'joints2D-L2E']
+    pw3d_metrics += [m + "_samples_min" for m in pw3d_metrics if m != "joints2D-L2E"]
+    check_eval_outputs("phase 6d", metrics, pw3d_metrics, save, len(photos))
+    readings["launches"][f"eval_3dpw_{len(photos)}_frames_b{EVAL_BATCH}"] = launches
+    lap("phase 6d")
+
+    # (e) timings: frames/s of the driver, one step's profile, the head with
+    # each SVD, and the kernels at the two eval shapes beside their bounds.
+    for batch, root in ((1, ssp3d_4), (EVAL_BATCH, ssp3d)):
+        kw = dict(card, eval_dataset=type(card["eval_dataset"])(
+            root, card["pose_shape_cfg"], visible_joints_threshold=0.6))
+        rate, rates = timed_eval_runs(kw, batch)
+        log(f"[phase 6e] evaluation, --dataset ssp3d --batch_size {batch}, "
+            f"{len(kw['eval_dataset'])} frames: {rate:.2f} frames/s (median of "
+            f"{[round(r, 2) for r in rates]})")
+        readings[f"eval_b{batch}_frames_s"] = rate
+    step = make_step(card)
+    step_args = batch_args(device)
+    svd3x3_gesdd.iterations = 0
+    step(*step_args)
+    step_iterations = svd3x3_gesdd.iterations
+    step_ms = median_ms(lambda: step(*step_args), repeats=2)
+    p = device_profile(lambda: step(*step_args))
+    log(f"[phase 6e] one eval step, batch {EVAL_BATCH}: {step_ms:.2f} ms; "
+        f"profiled: wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} "
+        f"ms ({p['device_ms'] / p['wall_ms']:.1%}), {p['launches']} device "
+        f"launches, {step_iterations} bidiagonal QR iterations (host syncs)")
+    for e in sorted(p["rows"], key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"[phase 6e]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
+    readings.update(eval_step_ms=step_ms, eval_step_launches=p["launches"],
+                    eval_step_busy=p["device_ms"] / p["wall_ms"])
+    model = card["pose_shape_model"]
+    proxy = torch.rand((EVAL_BATCH, 18, wh, wh),
+                       generator=torch.Generator().manual_seed(0)).to(device)
+    readings["head_ms"] = {}
+    with torch.inference_mode():
+        for impl in ("jacobi", "lapack", "lapack_callback"):
+            model.svd_impl = impl
+            svd3x3_gesdd.iterations = 0
+            model(proxy)
+            iterations = svd3x3_gesdd.iterations
+            ms = median_ms(lambda: model(proxy), repeats=2)
+            log(f"[phase 6e] predictor, batch {EVAL_BATCH}, svd_impl {impl}: "
+                f"{ms:.2f} ms a call; {iterations} bidiagonal QR iterations")
+            readings["head_ms"][impl] = ms
+    model.svd_impl = "lapack"
+    readings["kernels"] = {name: time_rasterizer("phase 6e", name, scene, cov)
+                           for name, (scene, cov) in scenes.items()}
+    readings["face_boxes"] = time_face_boxes(scenes, tag="phase 6e")
+    for name, (scene, _) in scenes.items():
+        fv, _ = face_vertices(scene.screen, scene.faces)
+        readings["face_boxes"][name]["plain_ms"] = median_ms(
+            lambda: face_boxes_plain(fv, scene.tables.image_hw), inner=5)
+        log(f"[phase 6e] face_boxes {name}: plain version "
+            f"{readings['face_boxes'][name]['plain_ms']:.4f} ms")
+    lap("phase 6e")
+
+    # (f) the LAPACK-sign SVD on the card against the port on the CPU.
+    F = torch.as_tensor(np.random.RandomState(5).randn(2000, 3, 3) * 0.5
+                        + np.eye(3), dtype=torch.float32)
+    card_usv = [a.cpu() for a in svd3x3_gesdd(F.to(device))]
+    cpu_usv = svd3x3_gesdd(F)
+    same = ((card_usv[0] - cpu_usv[0]).abs().amax((1, 2)) <= 1e-5) & (
+        (card_usv[2] - cpu_usv[2]).abs().amax((1, 2)) <= 1e-5)
+    s_err = float((card_usv[1] - cpu_usv[1]).abs().max())
+    bitwise = all(torch.equal(a, b) for a, b in zip(card_usv, cpu_usv))
+    log(f"[phase 6f] svd3x3_gesdd on 2000 F + I matrices, card vs CPU: equal "
+        f"signs (U, V within 1e-5) on {float(same.float().mean()):.4f} (tol "
+        f"0.99); S max abs diff {s_err:.2e}; U, S, V bit-equal {bitwise}")
+    if float(same.float().mean()) < 0.99 or s_err > 1e-5:
+        raise AssertionError("[phase 6f] svd3x3_gesdd on the card disagrees "
+                             "with the CPU")
+    # Why the module takes its square roots in float64: torch's float32
+    # sqrt on the card against the CPU's, and the float64 route.
+    x = torch.as_tensor(np.abs(np.random.RandomState(0).randn(1 << 20)) * 3,
+                        dtype=torch.float32)
+    off32 = int((torch.sqrt(x.to(device)).cpu() != torch.sqrt(x)).sum())
+    off64 = int((torch.sqrt(x.to(device).double()).float().cpu()
+                 != torch.sqrt(x.double()).float()).sum())
+    log(f"[phase 6f] float32 sqrt of {x.numel()} values, card vs CPU: "
+        f"{off32} differ; through float64: {off64} differ")
+    readings["gesdd_same_share"] = float(same.float().mean())
+    lap("phase 6f")
+    return readings
+
+
+def write_ssp3d_folder(root, images, seed=0):
+    """A folder in SSP-3D's layout (data/ssp3d_eval_dataset.py): images/,
+    silhouettes/ (an ellipse of 255 about each image's centre) and
+    labels.npz with fnames, shapes, poses, joints2D (17 x 3 with
+    confidences), bbox_centres (row, col), bbox_whs and genders
+    alternating m/f, from the seed.
+
+    :param images: list of uint8 (H, W, 3) RGB images, one frame each
+    :return: root
+    """
+    import cv2
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "silhouettes"))
+    n = len(images)
+    fnames = [f"frame_{i:03d}.png" for i in range(n)]
+    centres, whs, joints = [], [], []
+    for fname, rgb in zip(fnames, images):
+        H, W = rgb.shape[:2]
+        cv2.imwrite(os.path.join(root, "images", fname),
+                    cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+        sil = np.zeros((H, W), np.uint8)
+        cv2.ellipse(sil, (W // 2, H // 2), (W // 6, H // 3), 0, 0, 360, 255, -1)
+        cv2.imwrite(os.path.join(root, "silhouettes", fname), sil)
+        centres.append([H / 2.0 + rng.uniform(-0.05, 0.05) * H,
+                        W / 2.0 + rng.uniform(-0.05, 0.05) * W])
+        whs.append(0.8 * min(H, W))
+        joints.append(np.concatenate(
+            [rng.uniform(0.3, 0.7, (17, 2)) * [W, H], rng.rand(17, 1)], axis=1))
+    np.savez(os.path.join(root, "labels.npz"),
+             fnames=np.array(fnames),
+             shapes=rng.randn(n, 10).astype(np.float32),
+             poses=(rng.randn(n, 72) * 0.2).astype(np.float32),
+             joints2D=np.asarray(joints, np.float32),
+             bbox_centres=np.asarray(centres, np.float32),
+             bbox_whs=np.asarray(whs, np.float32),
+             genders=np.array(["m", "f"] * (n // 2) + ["m"] * (n % 2)))
+    return root
+
+
+def write_3dpw_folder(root, images, seed=0):
+    """A folder in 3DPW's layout (data/pw3d_eval_dataset.py):
+    cropped_frames/, 3dpw_test.npz with imgname, pose, shape and gender
+    (n, m, f in turn) and hrnet_results_centred.npy (17 x 3 keypoints with
+    confidences in the frame's pixels), from the seed.
+
+    :param images: list of square uint8 (S, S, 3) RGB images
+    :return: root
+    """
+    import cv2
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "cropped_frames"))
+    n = len(images)
+    fnames = [f"frame_{i:03d}.png" for i in range(n)]
+    keypoints = []
+    for fname, rgb in zip(fnames, images):
+        cv2.imwrite(os.path.join(root, "cropped_frames", fname),
+                    cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+        keypoints.append(np.concatenate(
+            [rng.uniform(0.2, 0.8, (17, 2)) * rgb.shape[0], rng.rand(17, 1)],
+            axis=1))
+    np.savez(os.path.join(root, "3dpw_test.npz"),
+             imgname=np.array(fnames),
+             pose=(rng.randn(n, 72) * 0.2).astype(np.float32),
+             shape=rng.randn(n, 10).astype(np.float32),
+             gender=np.array(["n", "m", "f"] * (n // 3 + 1))[:n])
+    np.save(os.path.join(root, "hrnet_results_centred.npy"),
+            np.asarray(keypoints, np.float32))
+    return root
+
+
 def hrnet_predict(kwargs, stack):
     """One batched HRNet keypoint call on a uint8 NHWC stack on the card."""
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
@@ -1378,18 +1853,20 @@ def main():
         timing = timed_phase("phase 4", phase_timing, argv, scenes)
         del scenes
         batched = phase_batched(workdir)
+        evaluation = timed_phase("phase 6", phase_eval, workdir, device)
 
     boxes = timing["face_boxes"]
     path_launches = {"per_image_3_photos": launches,
                      **{f"{path}_{'1_photo' if path == 'samples' else '12_photos'}":
-                        counts for path, counts in batched["launches"].items()}}
+                        counts for path, counts in batched["launches"].items()},
+                     **evaluation["launches"]}
     kernels = [{
         "name": "rasterize",
         "route": "cuda",
         "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:240",
         "launches": launches["rasterize"],
-        "max_abs_err": max(attr_err, batched["attr_err"]),
+        "max_abs_err": max(attr_err, batched["attr_err"], evaluation["attr_err"]),
         "ms": timing["predict"]["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["predict"]["bound_ms"],
@@ -1405,6 +1882,12 @@ def main():
         "ms_samples": batched["kernels"]["samples"]["kernel_ms"],
         "bound_ms_samples": batched["kernels"]["samples"]["bound_ms"],
         "bound_by_samples": batched["kernels"]["samples"]["bound_by"],
+        **{f"{key}_{name}": evaluation["kernels"][name][field]
+           for name in ("eval_mode", "eval_samples")
+           for key, field in (("ms", "kernel_ms"), ("bound_ms", "bound_ms"),
+                              ("bound_by", "bound_by"))},
+        **{f"plain_ms_{name}": evaluation[f"plain_ms_{name}"]
+           for name in ("eval_mode", "eval_samples")},
         "device_launches_per_call": timing["device_launches_per_call"],
         "launches_by_path": {k: v["rasterize"] for k, v in path_launches.items()},
     }, {
@@ -1413,7 +1896,7 @@ def main():
         "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:97",
         "launches": launches["face_boxes"],
-        "max_abs_err": max(box_err, batched["box_err"]),
+        "max_abs_err": max(box_err, batched["box_err"], evaluation["box_err"]),
         "ms": boxes["predict"]["kernel_ms"],
         "plain_ms": boxes["plain_ms"],
         "bound_ms": boxes["predict"]["bound_ms"],
@@ -1427,12 +1910,17 @@ def main():
         "bound_ms_batched": batched["face_boxes"]["batched"]["bound_ms"],
         "ms_samples": batched["face_boxes"]["samples"]["kernel_ms"],
         "bound_ms_samples": batched["face_boxes"]["samples"]["bound_ms"],
+        **{f"{key}_{name}": evaluation["face_boxes"][name][field]
+           for name in ("eval_mode", "eval_samples")
+           for key, field in (("ms", "kernel_ms"), ("bound_ms", "bound_ms"),
+                              ("plain_ms", "plain_ms"))},
         "launches_by_path": {k: v["face_boxes"] for k, v in path_launches.items()},
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
-    log(f"[phase 5] readings " + json.dumps(
-        {k: v for k, v in batched.items()
-         if k not in ("kernels", "face_boxes", "launches")}))
+    for tag, readings in (("phase 5", batched), ("phase 6", evaluation)):
+        log(f"[{tag}] readings " + json.dumps(
+            {k: v for k, v in readings.items()
+             if k not in ("kernels", "face_boxes", "launches")}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,13 @@ Counterpart of hierarchicalprobabilistic3dhuman_tpu/cli/predict.py
 cropped photos or on uncropped ones through the HRNet keypoint-bootstrap
 detector, with the uncrop and samples figures and a bfloat16 HRNet, plus
 --device (default cuda; a run that asks for cuda and finds none fails), the
-figure size and the sample count. Not ported yet, and refused when given:
-checkpoint loading (--pose_shape_weights, --pose2D_hrnet_weights), the
-LAPACK-sign SVD (--svd_impl lapack, lapack_callback) and more than one
-device (--num_devices > 1). The networks are randomly initialised from
-seed 0; without the licensed SMPL files the synthetic SMPL model is used.
+figure size and the sample count. --pose_shape_weights and
+--pose2D_hrnet_weights take the reference's checkpoints (.tar/.pth/.pt);
+without one the network is randomly initialised from seed 0. --svd_impl
+auto takes the LAPACK-sign SVD exactly when a reference predictor
+checkpoint is given (the JAX package's cli/evaluate.py:81-83). More than
+one device (--num_devices > 1) is not ported yet and is refused. Without
+the licensed SMPL files the synthetic SMPL model is used.
 """
 
 import argparse
@@ -20,19 +22,35 @@ import argparse
 import torch
 
 
+def resolve_svd_impl(svd_impl, pose_shape_weights):
+    """--svd_impl auto: the LAPACK-sign SVD for a reference checkpoint
+    (trained on torch.svd's signs), else the Jacobi SVD."""
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import (
+        CHECKPOINT_SUFFIXES)
+    if svd_impl != "auto":
+        return svd_impl
+    return ("lapack" if (pose_shape_weights or "").endswith(CHECKPOINT_SUFFIXES)
+            else "jacobi")
+
+
+def load_or_init(module, path, load_state_dict, generator, flag):
+    """The module with the checkpoint's weights, or drawn from `generator`
+    (with a warning) when no checkpoint was given. The draw is made either
+    way, so one network's checkpoint leaves the other's random weights as
+    they were."""
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
+    init_weights(module, generator)
+    if path is None:
+        print(f"WARNING: no --{flag} given; using random init.")
+    else:
+        module.load_state_dict(load_state_dict(path), strict=True)
+        print(f"Loaded --{flag} from {path}")
+    return module
+
+
 def _refuse_unported(args):
     """Flags of run_predict.py whose code is not ported yet raise rather
     than being ignored."""
-    for flag in ("pose_shape_weights", "pose2D_hrnet_weights"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag}: checkpoint loading is not ported yet (ROADMAP "
-                "'Waiting' item: lapack_svd3 with checkpoint loading)")
-    if args.svd_impl not in ("auto", "jacobi"):
-        raise NotImplementedError(
-            f"--svd_impl {args.svd_impl}: the LAPACK-sign SVD "
-            "(ops/lapack_svd3.py) is not ported yet; the port runs the Jacobi "
-            "SVD, which is what 'auto' selects without a checkpoint")
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: the multi-device paths are "
@@ -73,10 +91,9 @@ def build_predictor(args):
         CannyEdgeDetector)
     from hierarchicalprobabilistic3dhuman_torch.models.hrnet import (
         PoseHighResolutionNet)
-    from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
-        PoseMFShapeGaussianNet)
     from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
-    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import (
+        load_hrnet_state_dict, load_predictor_state_dict)
     from hierarchicalprobabilistic3dhuman_torch.utils.device import (
         resolve_device, set_full_f32)
     from hierarchicalprobabilistic3dhuman_torch.utils.precision import bf16_apply
@@ -92,19 +109,16 @@ def build_predictor(args):
     hrnet_cfg = get_pose2d_hrnet_cfg_defaults()
 
     generator = torch.Generator().manual_seed(0)
-    print("WARNING: checkpoint loading is not ported yet; HRNet and the "
-          "distribution predictor use random weights.")
-    hrnet = init_weights(
-        PoseHighResolutionNet(num_joints=hrnet_cfg.MODEL.NUM_JOINTS), generator)
-    model_cfg = pose_shape_cfg.MODEL
-    if model_cfg.NUM_RESNET_LAYERS != 18:
-        raise NotImplementedError("only the ResNet-18 encoder is ported")
-    pose_shape_model = init_weights(PoseMFShapeGaussianNet(
-        num_in_channels=model_cfg.NUM_IN_CHANNELS,
-        embed_dim=model_cfg.EMBED_DIM,
-        delta_i=model_cfg.DELTA_I,
-        delta_i_weight=model_cfg.DELTA_I_WEIGHT,
-        num_smpl_betas=model_cfg.NUM_SMPL_BETAS), generator)
+    hrnet = load_or_init(
+        PoseHighResolutionNet(num_joints=hrnet_cfg.MODEL.NUM_JOINTS),
+        args.pose2D_hrnet_weights, load_hrnet_state_dict, generator,
+        "pose2D_hrnet_weights")
+    svd_impl = resolve_svd_impl(args.svd_impl, args.pose_shape_weights)
+    print(f"3x3 SVD of the pose head: {svd_impl}")
+    pose_shape_model = load_or_init(
+        build_pose_shape_model(pose_shape_cfg, svd_impl),
+        args.pose_shape_weights, load_predictor_state_dict, generator,
+        "pose_shape_weights")
     hrnet = hrnet.to(device).eval()
     if args.bf16:
         # Parameters and activations in bfloat16, heatmaps back in float32.
@@ -117,14 +131,14 @@ def build_predictor(args):
         gaussian_filter_std=pose_shape_cfg.DATA.EDGE_GAUSSIAN_STD,
         gaussian_filter_size=pose_shape_cfg.DATA.EDGE_GAUSSIAN_SIZE,
         threshold=pose_shape_cfg.DATA.EDGE_THRESHOLD)
+    num_betas = pose_shape_cfg.MODEL.NUM_SMPL_BETAS
     try:
         smpl_model = SMPL.from_files(device, gender=args.gender,
-                                     num_betas=model_cfg.NUM_SMPL_BETAS)
+                                     num_betas=num_betas)
     except FileNotFoundError as e:
         print(f"WARNING: {e}\nFalling back to a synthetic SMPL model "
               f"(geometry will not be human).")
-        smpl_model = SMPL.synthetic(device,
-                                    num_betas=model_cfg.NUM_SMPL_BETAS)
+        smpl_model = SMPL.synthetic(device, num_betas=num_betas)
 
     return dict(
         pose_shape_model=pose_shape_model,
@@ -141,6 +155,22 @@ def build_predictor(args):
         visualise_wh=args.visualise_wh,
         visualise_uncropped=args.visualise_uncropped,
         num_uncertainty_samples=args.num_uncertainty_samples)
+
+
+def build_pose_shape_model(pose_shape_cfg, svd_impl):
+    """The distribution predictor the config describes (ResNet-18 only)."""
+    from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
+        PoseMFShapeGaussianNet)
+    model_cfg = pose_shape_cfg.MODEL
+    if model_cfg.NUM_RESNET_LAYERS != 18:
+        raise NotImplementedError("only the ResNet-18 encoder is ported")
+    return PoseMFShapeGaussianNet(
+        num_in_channels=model_cfg.NUM_IN_CHANNELS,
+        embed_dim=model_cfg.EMBED_DIM,
+        delta_i=model_cfg.DELTA_I,
+        delta_i_weight=model_cfg.DELTA_I_WEIGHT,
+        num_smpl_betas=model_cfg.NUM_SMPL_BETAS,
+        svd_impl=svd_impl)
 
 
 def run_predict(args):
@@ -172,15 +202,19 @@ def build_parser():
     parser.add_argument("--save_dir", "-S", type=str, required=True,
                         help="Directory to save predictions/visualisations.")
     parser.add_argument("--pose_shape_weights", "-W3D", type=str, default=None,
-                        help="Not ported yet: refused.")
+                        help="Reference predictor checkpoint (.tar/.pth/.pt); "
+                             "random weights without one.")
     parser.add_argument("--pose_shape_cfg", type=str, default=None)
     parser.add_argument("--svd_impl", type=str, default="auto",
                         choices=["auto", "jacobi", "lapack", "lapack_callback"],
-                        help="3x3 SVD: the port runs 'jacobi' (which 'auto' "
-                             "selects without a checkpoint); the LAPACK-sign "
-                             "modes are not ported yet and are refused.")
+                        help="3x3 SVD of the pose head: 'jacobi', 'lapack' "
+                             "(sgesdd's signs on the device) or "
+                             "'lapack_callback' (numpy's sgesdd on the "
+                             "host); 'auto' takes 'lapack' for a reference "
+                             "checkpoint, else 'jacobi'.")
     parser.add_argument("--pose2D_hrnet_weights", "-W2D", type=str, default=None,
-                        help="Not ported yet: refused.")
+                        help="Reference HRNet-W48 checkpoint (.tar/.pth/.pt); "
+                             "random weights without one.")
     parser.add_argument("--cropped_images", "-C", action="store_true",
                         help="Images are already cropped and centred.")
     parser.add_argument("--detector", type=str, default="auto",

@@ -1,8 +1,8 @@
 """Model-file paths (reference: configs/paths.py:1-20).
 
 Every path can be overridden via an environment variable; by default the
-shipped model files resolve relative to the repository root. Dataset paths
-arrive with the evaluation and training slices of the port.
+shipped model files resolve relative to the repository root. Training
+dataset paths arrive with the training slice of the port.
 """
 
 import os
@@ -26,3 +26,7 @@ H36M_REGRESSOR = _p("HP3D_H36M_REGRESSOR",
 # ------------------- DensePose Files for Textured Rendering -------------------
 DP_UV_PROCESSED_FILE = _p("HP3D_DP_UV_PROCESSED_FILE",
                           os.path.join(_REPO_ROOT, "model_files", "UV_Processed.mat"))
+
+# ------------------------- Eval Datasets -------------------------
+PW3D_PATH = _p("HP3D_PW3D_PATH", "./datasets/3DPW/test")
+SSP3D_PATH = _p("HP3D_SSP3D_PATH", "./datasets/ssp_3d")

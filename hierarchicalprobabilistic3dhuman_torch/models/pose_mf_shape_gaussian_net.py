@@ -10,16 +10,17 @@ pose_mf_shape_gaussian_net.py::PoseMFShapeGaussianNet (:81-241):
   * hierarchical pose head: one 2-layer MLP per body joint, fed the
     embedding plus all ancestors' (U_proper, S_proper, mode), evaluated
     depth-grouped (joints at one kinematic depth share an input width, so
-    each depth is one batched product and one batched Jacobi SVD);
-  * delta-I: the identity is added to each joint's F.
+    each depth is one batched product and one batched 3x3 SVD);
+  * delta-I: the identity is added to each joint's F;
+  * svd_impl (:98, :205-210): "jacobi" (the default), "lapack" (sgesdd's
+    signs on the device, ops/lapack_svd3.py) or "lapack_callback" (numpy's
+    sgesdd on a host copy), the last two for reference checkpoints.
 
 The head runs in full float32: on the card its matmuls run with TF32 off.
 Parameter names are the reference checkpoint's state-dict keys
 (image_encoder.*, fc1, fc_shape, fc_cam, fc_glob, fc_embed,
 fc_pose.{j}.0 / fc_pose.{j}.2).
 """
-
-from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -28,7 +29,11 @@ import torch.nn.functional as F
 
 from hierarchicalprobabilistic3dhuman_torch.models.resnet import resnet18
 from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL_PARENTS
-from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import proper_svd3x3
+from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import (
+    proper_svd3x3, proper_svd3x3_gesdd, proper_svd3x3_lapack)
+from hierarchicalprobabilistic3dhuman_torch.utils.device import full_f32_matmul
+
+SVD_IMPLS = ("jacobi", "lapack", "lapack_callback")
 
 
 def immediate_parents_to_all_parents(immediate_parents):
@@ -51,23 +56,17 @@ _INIT_GLOB = np.array([1.0, 0.0, 0.0, 1.0, 0.0, 0.0], dtype=np.float32)
 _INIT_CAM = np.array([0.9, 0.0, 0.0], dtype=np.float32)
 
 
-@contextmanager
-def _full_f32_matmul():
-    """TF32 off for float32 matmuls inside the block (a no-op on the CPU)."""
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
-
-
 class PoseMFShapeGaussianNet(nn.Module):
     """Input (B, C, D, D) proxy representation -> distribution parameters."""
 
     def __init__(self, num_in_channels=18, embed_dim=256, delta_i=True,
-                 delta_i_weight=1.0, num_smpl_betas=10, svd_sweeps=8):
+                 delta_i_weight=1.0, num_smpl_betas=10, svd_sweeps=8,
+                 svd_impl="jacobi"):
         super().__init__()
+        if svd_impl not in SVD_IMPLS:
+            raise ValueError(f"svd_impl must be one of {SVD_IMPLS}, got "
+                             f"{svd_impl!r}")
+        self.svd_impl = svd_impl
         self.parents_dict = immediate_parents_to_all_parents(
             [int(p) for p in SMPL_PARENTS])
         self.num_joints = len(self.parents_dict)
@@ -102,7 +101,7 @@ class PoseMFShapeGaussianNet(nn.Module):
 
     def forward(self, inputs):
         feats = self.image_encoder(inputs)
-        with _full_f32_matmul():
+        with full_f32_matmul():
             return self._head(feats)
 
     def _head(self, feats):
@@ -137,7 +136,12 @@ class PoseMFShapeGaussianNet(nn.Module):
                        ).reshape(B, len(group), 3, 3)
             if self.delta_i:
                 group_F = group_F + self.delta_i_weight * eye
-            svd = proper_svd3x3(group_F, n_sweeps=self.svd_sweeps)
+            if self.svd_impl == "lapack":
+                svd = proper_svd3x3_gesdd(group_F)
+            elif self.svd_impl == "lapack_callback":
+                svd = proper_svd3x3_lapack(group_F)
+            else:
+                svd = proper_svd3x3(group_F, n_sweeps=self.svd_sweeps)
             svd["F"] = group_F
             for gi, joint in enumerate(group):
                 for k in out_j:

@@ -2,7 +2,8 @@
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/models/smpl.py (lbs :342,
 smpl_forward :491 with the 90-joint output :539-543, synthetic_smpl_params
-:225, the SMPL wrapper :552). Joints (B, 90, 3):
+:225, the SMPL wrapper :552; the official .pkl loader :78-158; per-example
+genders, lbs_mixed :378 and smpl_forward_mixed :436). Joints (B, 90, 3):
   [0:24]   SMPL kinematic joints (posed)
   [24:45]  21 surface landmark joints
   [45:54]  J_regressor_extra (9)
@@ -11,6 +12,7 @@ smpl_forward :491 with the 90-joint output :539-543, synthetic_smpl_params
 """
 
 import os
+import pickle
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -63,6 +65,51 @@ class SMPLParams:
         return cls(**out)
 
 
+def _as_dense(x):
+    """Handle scipy sparse matrices and chumpy-wrapped arrays from SMPL pkls."""
+    if hasattr(x, "toarray"):
+        return np.asarray(x.toarray())
+    if hasattr(x, "x") and not isinstance(x, np.ndarray):  # chumpy Ch object
+        return np.asarray(x.x)
+    return np.asarray(x)
+
+
+class _ChumpyStub:
+    """Stand-in for chumpy objects during unpickling (chumpy is not installed)."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {"x": state})
+
+
+class _SMPLUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChumpyStub
+        return super().find_class(module, name)
+
+
+def load_smpl_pkl(pkl_path):
+    """Load an official SMPL .pkl (chumpy-free) into a dict of its fields.
+    Unpickling runs code the file names: load only the official files."""
+    with open(pkl_path, "rb") as f:
+        return _SMPLUnpickler(f, encoding="latin1").load()
+
+
+def convert_smpl_pkl_to_npz(pkl_path, npz_path, num_betas=10):
+    """One-off converter: official SMPL pkl -> npz of plain numpy arrays."""
+    data = load_smpl_pkl(pkl_path)
+    np.savez(
+        npz_path,
+        v_template=_as_dense(data["v_template"]).astype(np.float32),
+        shapedirs=np.asarray(_as_dense(data["shapedirs"]), np.float32)[:, :, :num_betas],
+        posedirs=_as_dense(data["posedirs"]).astype(np.float32),
+        J_regressor=_as_dense(data["J_regressor"]).astype(np.float32),
+        weights=_as_dense(data["weights"]).astype(np.float32),
+        f=_as_dense(data["f"]).astype(np.int32),
+        kintree_table=_as_dense(data["kintree_table"]).astype(np.int64),
+    )
+
+
 def _load_extra_regressors():
     return (np.load(paths.J_REGRESSOR_EXTRA).astype(np.float32),
             np.load(paths.COCOPLUS_REGRESSOR).astype(np.float32),
@@ -70,16 +117,18 @@ def _load_extra_regressors():
 
 
 def smpl_arrays_from_native(data, num_betas=10):
-    """Numpy SMPL arrays from a dict with native SMPL fields (npz)."""
-    posedirs = np.asarray(data["posedirs"], np.float32)            # (V, 3, 207)
+    """Numpy SMPL arrays from a dict with native SMPL fields (npz or pkl)."""
+    def dense(key):
+        return _as_dense(data[key]).astype(np.float32)
+    posedirs = dense("posedirs")                                   # (V, 3, 207)
     jre, jrc, jrh = _load_extra_regressors()
     return {
-        "v_template": np.asarray(data["v_template"], np.float32),
-        "shapedirs": np.asarray(data["shapedirs"], np.float32)[:, :, :num_betas],
+        "v_template": dense("v_template"),
+        "shapedirs": dense("shapedirs")[:, :, :num_betas],
         "posedirs": posedirs.reshape(-1, posedirs.shape[-1]).T,
-        "J_regressor": np.asarray(data["J_regressor"], np.float32),
-        "lbs_weights": np.asarray(data["weights"], np.float32),
-        "faces": np.asarray(data["f"], np.int64),
+        "J_regressor": dense("J_regressor"),
+        "lbs_weights": dense("weights"),
+        "faces": _as_dense(data["f"]).astype(np.int64),
         "J_regressor_extra": jre,
         "J_regressor_cocoplus": jrc,
         "J_regressor_h36m": jrh,
@@ -254,10 +303,65 @@ def smpl_forward(params, betas=None, body_pose=None, global_orient=None,
         batch_size = next(a.shape[0] for a in (betas, body_pose, global_orient)
                           if a is not None)
     B = batch_size
-    dtype, device = params.v_template.dtype, params.v_template.device
     if betas is None:
-        betas = torch.zeros((B, params.shapedirs.shape[-1]), dtype=dtype,
-                            device=device)
+        betas = torch.zeros((B, params.shapedirs.shape[-1]),
+                            dtype=params.v_template.dtype,
+                            device=params.v_template.device)
+    verts, kin_joints = lbs(params, betas, _rotmats(params, B, body_pose,
+                                                    global_orient, pose2rot))
+    joints = _joints90(params, verts, kin_joints)
+    return {"vertices": verts, "joints": joints}
+
+
+def lbs_mixed(params_list, gender_onehot, betas, full_pose_rotmats):
+    """SMPL forward where each example uses its OWN gendered model params.
+
+    Every place the gendered parameters enter is linear in them, so mixing
+    the G per-gender contraction results (or the small parameter tensors
+    themselves) with the (B, G) one-hot reproduces
+    ``lbs(params_list[g[b]], ...)`` row by row; kinematics and skinning run
+    once on the mixed quantities.
+
+    :param params_list: sequence of G SMPLParams (same shapes).
+    :param gender_onehot: (B, G) float one-hot rows.
+    :param betas: (B, num_betas)
+    :param full_pose_rotmats: (B, 24, 3, 3)
+    :return: vertices (B, 6890, 3), kinematic joints (B, 24, 3)
+    """
+    B = betas.shape[0]
+    oh = gender_onehot.to(betas.dtype)
+
+    def mix(per_gender):
+        # per_gender: G of (B, ...) -> (B, ...)
+        return torch.einsum("gb...,bg->b...", torch.stack(per_gender), oh)
+
+    v_shaped = mix([p.v_template[None]
+                    + torch.einsum("vcn,bn->bvc", p.shapedirs, betas)
+                    for p in params_list])
+    J_reg = torch.einsum("gjv,bg->bjv",
+                         torch.stack([p.J_regressor for p in params_list]), oh)
+    J = torch.einsum("bjv,bvc->bjc", J_reg, v_shaped)
+
+    eye = torch.eye(3, dtype=v_shaped.dtype, device=v_shaped.device)
+    pose_feature = (full_pose_rotmats[:, 1:] - eye).reshape(B, -1)
+    pose_offsets = mix([(pose_feature @ p.posedirs).reshape(B, -1, 3)
+                        for p in params_list])
+    v_posed = v_shaped + pose_offsets
+
+    posed_joints, rel_transforms = _batch_rigid_transform(
+        full_pose_rotmats, J, SMPL_PARENTS)
+    lbs_w = torch.einsum("gvj,bg->bvj",
+                         torch.stack([p.lbs_weights for p in params_list]), oh)
+    T = torch.einsum("bvj,bjpq->bvpq", lbs_w, rel_transforms)
+    v_hom = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])], dim=-1)
+    verts = torch.einsum("bvpq,bvq->bvp", T, v_hom)[..., :3]
+    return verts, posed_joints
+
+
+def _rotmats(params, B, body_pose, global_orient, pose2rot):
+    """(B, 24, 3, 3) [global_orient, 23 body rotations], neutral where an
+    argument is None."""
+    dtype, device = params.v_template.dtype, params.v_template.device
     if pose2rot:
         if body_pose is None:
             body_pose = torch.zeros((B, NUM_BODY_JOINTS * 3), dtype=dtype,
@@ -273,24 +377,52 @@ def smpl_forward(params, betas=None, body_pose=None, global_orient=None,
                         else eye.expand(B, NUM_BODY_JOINTS, 3, 3))
         glob_rotmats = (global_orient.reshape(B, 1, 3, 3)
                         if global_orient is not None else eye.expand(B, 1, 3, 3))
+    return torch.cat([glob_rotmats, body_rotmats], dim=1)
 
-    full_pose = torch.cat([glob_rotmats, body_rotmats], dim=1)
-    verts, kin_joints = lbs(params, betas, full_pose)
-    landmark_ids = torch.as_tensor(EXTRA_LANDMARK_VERTEX_IDS, device=device)
-    joints = torch.cat([kin_joints,
-                        verts[:, landmark_ids],
-                        vertices2joints(params.J_regressor_extra, verts),
-                        vertices2joints(params.J_regressor_cocoplus, verts),
-                        vertices2joints(params.J_regressor_h36m, verts)], dim=1)
-    return {"vertices": verts, "joints": joints}
+
+def _joints90(params, verts, kin_joints):
+    """The reference wrapper's 90 joints from the posed vertices."""
+    landmark_ids = torch.as_tensor(EXTRA_LANDMARK_VERTEX_IDS,
+                                   device=verts.device)
+    return torch.cat([kin_joints,
+                      verts[:, landmark_ids],
+                      vertices2joints(params.J_regressor_extra, verts),
+                      vertices2joints(params.J_regressor_cocoplus, verts),
+                      vertices2joints(params.J_regressor_h36m, verts)], dim=1)
+
+
+def smpl_forward_mixed(params_list, gender_code, betas=None, body_pose=None,
+                       global_orient=None, pose2rot=True, batch_size=None):
+    """`smpl_forward` for per-example gendered params via `lbs_mixed`.
+
+    :param params_list: sequence of G SMPLParams, indexed by gender_code.
+    :param gender_code: (B,) int — index into params_list per example.
+
+    The three extra joint regressors are the same for every gender in the
+    reference, so the 90-joint assembly runs once, from params_list[0].
+    """
+    if batch_size is None:
+        batch_size = next(a.shape[0] for a in (betas, body_pose, global_orient)
+                          if a is not None)
+    B = batch_size
+    p0 = params_list[0]
+    if betas is None:
+        betas = torch.zeros((B, p0.shapedirs.shape[-1]),
+                            dtype=p0.v_template.dtype, device=p0.v_template.device)
+    onehot = torch.nn.functional.one_hot(gender_code.to(torch.int64),
+                                         len(params_list))
+    verts, kin_joints = lbs_mixed(params_list, onehot, betas,
+                                  _rotmats(p0, B, body_pose, global_orient,
+                                           pose2rot))
+    return {"vertices": verts, "joints": _joints90(p0, verts, kin_joints)}
 
 
 class SMPL:
     """Callable SMPL model (reference models/smpl_official.py:13-41 surface).
 
     `SMPL.from_files(device, gender)` reads SMPL_{GENDER}.npz under
-    `paths.SMPL`; the licensed files are not shipped, so runs here use
-    `SMPL.synthetic(device)`.
+    `paths.SMPL`, or SMPL_{GENDER}.pkl where there is no .npz; the licensed
+    files are not shipped, so runs without them use `SMPL.synthetic(device)`.
     """
 
     def __init__(self, params):
@@ -300,12 +432,15 @@ class SMPL:
     def from_files(cls, device, gender="neutral", num_betas=10,
                    model_path=None):
         base = os.path.join(model_path or paths.SMPL, f"SMPL_{gender.upper()}")
-        if not os.path.exists(base + ".npz"):
+        if os.path.exists(base + ".npz"):
+            data = dict(np.load(base + ".npz", allow_pickle=True))
+        elif os.path.exists(base + ".pkl"):
+            data = load_smpl_pkl(base + ".pkl")
+        else:
             raise FileNotFoundError(
-                f"No SMPL model file at {base}.npz. Official SMPL files are "
-                f"licensed and must be downloaded separately.")
-        arrays = smpl_arrays_from_native(dict(np.load(base + ".npz")),
-                                         num_betas=num_betas)
+                f"No SMPL model file at {base}.(npz|pkl). Official SMPL files "
+                f"are licensed and must be downloaded separately.")
+        arrays = smpl_arrays_from_native(data, num_betas=num_betas)
         return cls(SMPLParams.from_numpy(arrays, device))
 
     @classmethod

@@ -1,5 +1,10 @@
-"""Seeded random initialisation, and weights carried across from the JAX
-package's flax variables.
+"""Seeded random initialisation, reference checkpoints, and weights carried
+across from the JAX package's flax variables.
+
+Reference checkpoints (`.tar`/`.pth`/`.pt`, as the reference's training
+wrote them) load with `load_predictor_state_dict` and
+`load_hrnet_state_dict`, the counterparts of the JAX package's
+cli/predict.py::_load_predictor_variables :18 and _load_hrnet_variables :37.
 
 The port's modules use the reference checkpoints' state-dict keys, so the
 JAX package's converters (`torch_to_flax_resnet`, `torch_to_flax_hrnet`,
@@ -12,6 +17,8 @@ state dict for `module.load_state_dict`.
 import numpy as np
 import torch
 import torch.nn as nn
+
+CHECKPOINT_SUFFIXES = (".tar", ".pth", ".pt")
 
 
 def init_weights(module, generator):
@@ -29,6 +36,50 @@ def init_weights(module, generator):
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
     return module
+
+
+def _numpy_scalar_globals():
+    """What a reference checkpoint's non-tensor entries (epoch, validation
+    metrics) unpickle through: numpy scalars and their dtypes, under
+    numpy 2's module names and numpy 1's."""
+    multiarray = getattr(np, "_core", None) or np.core
+    dtypes = [type(np.dtype(t)) for t in (np.float16, np.float32, np.float64,
+                                          np.int32, np.int64, np.bool_)]
+    return ([multiarray.multiarray.scalar, np.dtype, *dtypes,
+             (multiarray.multiarray.scalar, "numpy.core.multiarray.scalar")])
+
+
+def load_checkpoint(path):
+    """A reference checkpoint's dict, its tensors on the CPU.
+
+    torch.load runs with weights_only=True and admits, besides tensors, only
+    numpy scalars. Other formats (the JAX package's flax msgpack
+    checkpoints, runtime/checkpointing.py) are ported with training.
+    """
+    if not str(path).endswith(CHECKPOINT_SUFFIXES):
+        raise NotImplementedError(
+            f"{path}: only reference checkpoints ({', '.join(CHECKPOINT_SUFFIXES)}) "
+            "load in the port; the JAX package's flax checkpoints come with "
+            "the training slice (ROADMAP slice 4)")
+    with torch.serialization.safe_globals(_numpy_scalar_globals()):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_predictor_state_dict(path):
+    """The distribution predictor's state dict from a reference checkpoint:
+    its best_model_state_dict, else its model_state_dict, else the file's
+    dict itself; for PoseMFShapeGaussianNet.load_state_dict(strict=True)."""
+    ckpt = load_checkpoint(path)
+    return dict(ckpt.get("best_model_state_dict",
+                         ckpt.get("model_state_dict", ckpt)))
+
+
+def load_hrnet_state_dict(path):
+    """HRNet-W48's state dict from a reference checkpoint: its state_dict,
+    else the file's dict itself, without the keys of the training loss."""
+    ckpt = load_checkpoint(path)
+    return {k: v for k, v in ckpt.get("state_dict", ckpt).items()
+            if not k.startswith("loss")}
 
 
 def _leaf(tree, path):

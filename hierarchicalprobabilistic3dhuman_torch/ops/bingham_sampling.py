@@ -1,7 +1,8 @@
-"""Fixed-shape Bingham / matrix-Fisher sampling, in torch.
+"""Fixed-shape Bingham / matrix-Fisher sampling and Gaussian shape sampling,
+in torch.
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/ops/bingham_sampling.py
-:29-119: ACG proposals for every (batch, joint, sample, oversample) lane are
+:29-130: ACG proposals for every (batch, joint, sample, oversample) lane are
 drawn at once, acceptance is a mask, and the first N accepted lanes in draw
 order are kept (the shortfall falls back to the highest acceptance ratios).
 
@@ -87,3 +88,19 @@ def pose_matrix_fisher_sampling(pose_U, pose_S, pose_V, num_samples, b=1.5,
                                        generator=generator, eps=eps, w=w)
     R_tilde = quat_to_rotmat(quat_samples).transpose(1, 2)  # (B, N, J, 3, 3)
     return U_proper[:, None] @ R_tilde @ V_proper.transpose(-1, -2)[:, None]
+
+
+def shape_gaussian_sampling(shape_mean, shape_std, num_samples,
+                            generator=None, eps=None):
+    """Reparameterised diagonal-Gaussian shape samples (the JAX package's
+    bingham_sampling.py::shape_gaussian_sampling :122).
+
+    :param shape_mean, shape_std: (B, num_betas)
+    :param eps: optional (B, N, num_betas) standard-normal draws
+    :return: (B, N, num_betas)
+    """
+    if eps is None:
+        eps = torch.randn((shape_mean.shape[0], num_samples, shape_mean.shape[1]),
+                          generator=generator, dtype=shape_mean.dtype,
+                          device=shape_mean.device)
+    return shape_mean[:, None] + shape_std[:, None] * eps

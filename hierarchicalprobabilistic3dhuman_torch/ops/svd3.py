@@ -1,15 +1,24 @@
-"""Batched 3x3 SVD by one-sided Jacobi rotations, in torch.
+"""Batched 3x3 SVDs in torch: one-sided Jacobi, and the LAPACK-sign modes.
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/ops/svd3.py
-(proper_svd3x3 :142, _properize :126, det3x3 :119). The sweep order, the
-rotation formula, the descending stable sort and the rebuild of U from the
-rotated columns follow the JAX kernel step for step, so U/S/V match it
-including column signs. torch.linalg.svd is not used: its sign choices
-differ, and the hierarchical head feeds U/S/mode of each joint to its
-children.
+(proper_svd3x3 :142, _properize :126, det3x3 :119, _np_svd3 :156,
+svd3x3_lapack :164, proper_svd3x3_lapack :190, proper_svd3x3_gesdd :200).
+The Jacobi sweep order, the rotation formula, the descending stable sort
+and the rebuild of U from the rotated columns follow the JAX kernel step
+for step, so U/S/V match it including column signs. torch.linalg.svd is
+not used: its sign choices differ, and the hierarchical head feeds U/S/mode
+of each joint to its children.
+
+The LAPACK-sign modes serve checkpoints trained on the reference's
+torch.svd signs: `proper_svd3x3_gesdd` runs ops/lapack_svd3.py on the
+tensors' own device, `proper_svd3x3_lapack` is the oracle the JAX package
+holds itself to, numpy's sgesdd on a host copy, on every device.
 """
 
+import numpy as np
 import torch
+
+from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import svd3x3_gesdd
 
 _TINY = 1e-30
 
@@ -129,3 +138,25 @@ def proper_svd3x3(F, n_sweeps=8):
              mode = U_proper @ V_proper^T (the distribution's mode rotation).
     """
     return _properize(*svd3x3(F, n_sweeps=n_sweeps))
+
+
+def svd3x3_lapack(F):
+    """SVD by numpy's LAPACK sgesdd on a host copy, returned on F's device.
+
+    :param F: (..., 3, 3)
+    :return: U (..., 3, 3), S (..., 3), V (..., 3, 3)
+    """
+    U, S, Vh = np.linalg.svd(F.detach().to("cpu", torch.float32).numpy())
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=F.device)
+                 for a in (U, S, np.swapaxes(Vh, -1, -2)))
+
+
+def proper_svd3x3_lapack(F):
+    """proper_svd3x3 with numpy's LAPACK signs (the host oracle)."""
+    return _properize(*svd3x3_lapack(F))
+
+
+def proper_svd3x3_gesdd(F):
+    """proper_svd3x3 with LAPACK sgesdd's signs, on F's device
+    (ops/lapack_svd3.py; not differentiable)."""
+    return _properize(*svd3x3_gesdd(F))

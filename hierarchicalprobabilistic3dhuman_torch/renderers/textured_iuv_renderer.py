@@ -2,9 +2,12 @@
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/renderers/
 textured_iuv_renderer.py (preprocess_densepose_UV :35, _vertex_normals :86,
-_to_screen :183, _phong :201, __call__ :232) for the predict visualisation:
-orthographic projection x_pix = scale*(W/2)*(X+tx) + W/2, point-light Phong
-shading of per-vertex colours, DensePose IUV per pixel. The rasterization
+_to_screen :183, _phong :201, __call__ :232) for the predict visualisation
+and the evaluation's silhouettes: orthographic projection
+x_pix = scale*(W/2)*(X+tx) + W/2, point-light Phong shading of per-vertex
+colours, DensePose IUV per pixel. With render_rgb=False (the JAX renderer's
+:257-291) the attributes are the 3 IUV channels alone, with no normals,
+lights or colour, and the render is IUV, depth and silhouettes. The rasterization
 goes through ops/rasterizer_cuda.py: the hand-written kernel for CUDA
 tensors, its plain torch version for CPU tensors.
 """
@@ -90,10 +93,13 @@ class TexturedIUVRenderer:
 
     :param device: where the DensePose tables live (the meshes' device)
     :param img_wh: square output size
+    :param render_rgb: shade per-vertex colours (A = 12 attributes per
+        vertex); False renders IUV, depth and silhouettes alone (A = 3)
     """
 
-    def __init__(self, device, img_wh=512):
+    def __init__(self, device, img_wh=512, render_rgb=True):
         self.img_wh = img_wh
+        self.render_rgb = render_rgb
         dp = preprocess_densepose_UV()
         self.faces = torch.as_tensor(dp["faces"], dtype=torch.int64, device=device)
         self.verts_map = torch.as_tensor(dp["verts_map"], dtype=torch.int64,
@@ -127,35 +133,36 @@ class TexturedIUVRenderer:
                  + lights["specular_color"] * rdotv ** shininess)
         return color * mask[..., None]
 
-    def raster_inputs(self, vertices, cam_t, orthographic_scale, verts_features):
-        """Screen-space DensePose vertices and their A=12 attributes
-        [IUV | normal | camera position | colour].
+    def raster_inputs(self, vertices, cam_t, orthographic_scale,
+                      verts_features=None):
+        """Screen-space DensePose vertices and their attributes: A=12
+        [IUV | normal | camera position | colour], or A=3 [IUV] without
+        render_rgb.
 
-        :return: screen (B, 7829, 3), vert_attrs (B, 7829, 12)
+        :return: screen (B, 7829, 3), vert_attrs (B, 7829, A)
         """
         verts_dp = vertices[:, self.verts_map, :]
         screen = self._to_screen(verts_dp, cam_t, orthographic_scale)
-        cam_space = verts_dp + cam_t[:, None, :]
         B = vertices.shape[0]
-        vert_attrs = torch.cat([
-            self.verts_iuv.expand((B,) + self.verts_iuv.shape),
-            _vertex_normals(cam_space, self.faces),
-            cam_space,
-            verts_features[:, self.verts_map, :],
-        ], dim=-1)
-        return screen, vert_attrs
+        attrs = [self.verts_iuv.expand((B,) + self.verts_iuv.shape)]
+        if self.render_rgb:
+            cam_space = verts_dp + cam_t[:, None, :]
+            attrs += [_vertex_normals(cam_space, self.faces), cam_space,
+                      verts_features[:, self.verts_map, :]]
+        return screen, torch.cat(attrs, dim=-1)
 
-    def __call__(self, vertices, cam_t, orthographic_scale, lights_rgb_settings,
-                 verts_features):
+    def __call__(self, vertices, cam_t, orthographic_scale,
+                 lights_rgb_settings=None, verts_features=None):
         """Render a batch of SMPL meshes.
 
         :param vertices: (B, 6890, 3) SMPL-indexed vertices (camera frame)
         :param cam_t: (B, 3) camera translation
         :param orthographic_scale: (B, 2)
         :param lights_rgb_settings: dict location/ambient_color/
-            diffuse_color/specular_color, each (B, 3)
-        :param verts_features: (B, 6890, 3) per-vertex RGB
+            diffuse_color/specular_color, each (B, 3) (with render_rgb)
+        :param verts_features: (B, 6890, 3) per-vertex RGB (with render_rgb)
         :return: dict iuv_images (B, H, W, 3), depth_images (B, H, W),
+                 silhouettes (B, H, W) float32, and with render_rgb
                  rgb_images (B, H, W, 3)
         """
         screen, vert_attrs = self.raster_inputs(vertices, cam_t,
@@ -163,11 +170,14 @@ class TexturedIUVRenderer:
                                                 verts_features)
         out = rasterize(screen, self.faces, vert_attrs, (self.img_wh, self.img_wh))
         attrs, depth, mask = out["attrs"], out["depth"], out["mask"]
-        rgb = self._phong(attrs[..., 9:12], attrs[..., 3:6], attrs[..., 6:9],
-                          lights_rgb_settings, mask)
-        rgb = torch.where(mask[..., None], rgb, self.background_color)
-        return {
+        result = {
             "iuv_images": attrs[..., :3] * mask[..., None],
             "depth_images": torch.where(mask, depth, torch.zeros_like(depth)),
-            "rgb_images": torch.clamp(rgb, 0.0, 1.0),
+            "silhouettes": mask.to(torch.float32),
         }
+        if self.render_rgb:
+            rgb = self._phong(attrs[..., 9:12], attrs[..., 3:6], attrs[..., 6:9],
+                              lights_rgb_settings, mask)
+            rgb = torch.where(mask[..., None], rgb, self.background_color)
+            result["rgb_images"] = torch.clamp(rgb, 0.0, 1.0)
+        return result

@@ -1,4 +1,6 @@
-"""Device selection for the port's entry points."""
+"""Device selection and float32 precision for the port's entry points."""
+
+from contextlib import contextmanager
 
 import torch
 
@@ -27,3 +29,14 @@ def set_full_f32(device):
     if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+@contextmanager
+def full_f32_matmul():
+    """TF32 off for float32 matmuls inside the block (a no-op on the CPU)."""
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous

@@ -54,19 +54,26 @@ def test_cuda_is_never_replaced_by_the_cpu():
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, the shim and chip_smoke.py, imported in a
-    fresh interpreter, load neither jax/flax nor the JAX package."""
+    """Every module of the port (the evaluation slice's included), the two
+    entry scripts and chip_smoke.py, imported in a fresh interpreter, load
+    neither jax/flax nor the JAX package."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {REPO!r})
 import {PORT}
 names = [m.name for m in pkgutil.walk_packages({PORT}.__path__, "{PORT}.")]
-for name in names + ["run_predict_torch", "chip_smoke"]:
+for name in names + ["run_predict_torch", "run_evaluate_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "hierarchicalprobabilistic3dhuman_tpu")]
 print(len(names), bad)
-assert len(names) >= 20 and not bad, bad
+evaluation = ["cli.evaluate", "evaluate.evaluate_pose_mf_shape_gaussian_net",
+              "metrics.metric_sums", "metrics.eval_metrics_tracker",
+              "ops.lapack_svd3", "utils.eval_utils", "data.loader",
+              "data.crop_utils_np", "data.ssp3d_eval_dataset",
+              "data.pw3d_eval_dataset"]
+missing = [m for m in evaluation if "{PORT}." + m not in names]
+assert len(names) >= 35 and not missing and not bad, (missing, bad)
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=REPO)

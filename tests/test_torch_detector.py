@@ -30,11 +30,13 @@ from hierarchicalprobabilistic3dhuman_tpu.predict.predict_hrnet import (
     select_centremost_person_box as j_select_box)
 
 from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
-    _make_detector, build_parser, main)
+    _make_detector, build_parser, build_predictor, main)
 from hierarchicalprobabilistic3dhuman_torch.configs import (
     get_pose2d_hrnet_cfg_defaults)
 from hierarchicalprobabilistic3dhuman_torch.models.hrnet import (
     PoseHighResolutionNet)
+from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
+    PoseMFShapeGaussianNet)
 from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
 from hierarchicalprobabilistic3dhuman_torch.predict import keypoint_detector as tkd
 from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
@@ -281,10 +283,12 @@ def test_predict_hrnet_matches_jax():
     assert port["cropped_image"].shape == (3, 384, 288) and crop_diff <= 1e-5
 
 
-def test_cli_detector_choices(capsys):
+def test_cli_detector_choices(capsys, tmp_path):
     """auto takes the keypoint bootstrap with JAX's NOTE; maskrcnn is
     refused with a clear error; cropped photos and 'none' take no detector;
-    the flags of what is not ported yet are refused, never ignored."""
+    reference checkpoints load and a predictor checkpoint selects the
+    LAPACK-sign SVD; --num_devices > 1, not ported yet, is refused, never
+    ignored."""
     def args(*extra):
         return build_parser().parse_args(["-I", "x", "-S", "y", *extra])
 
@@ -297,12 +301,32 @@ def test_cli_detector_choices(capsys):
     assert _make_detector(args("-C"), stub, HRNET_CFG, "cpu") is None
     with pytest.raises(RuntimeError, match="Mask-RCNN"):
         _make_detector(args("--detector", "maskrcnn"), stub, HRNET_CFG, "cpu")
-    for extra, match in ((["--pose_shape_weights", "w.tar"], "checkpoint"),
-                         (["--pose2D_hrnet_weights", "w.pth"], "checkpoint"),
-                         (["--svd_impl", "lapack"], "LAPACK"),
-                         (["--num_devices", "2"], "slice 5")):
-        with pytest.raises(NotImplementedError, match=match):
-            main(["-I", "x", "-S", "y", "--device", "cpu", *extra])
+    # Reference-layout checkpoints of random weights, as build_predictor
+    # reads them, with numpy scalars beside the state dicts.
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("DATA:\n  PROXY_REP_SIZE: 64\n")
+    predictor = init_weights(PoseMFShapeGaussianNet(),
+                             torch.Generator().manual_seed(11))
+    hrnet = init_weights(PoseHighResolutionNet(), torch.Generator().manual_seed(12))
+    w3d, w2d = str(tmp_path / "w.tar"), str(tmp_path / "w.pth")
+    torch.save({"best_model_state_dict": predictor.state_dict(),
+                "epoch": np.int64(3)}, w3d)
+    torch.save({"state_dict": hrnet.state_dict(),
+                "best_val": np.float64(0.5)}, w2d)
+    for extra, svd_impl, loaded in (
+            (["--pose_shape_weights", w3d], "lapack", "pose_shape_model"),
+            (["--pose2D_hrnet_weights", w2d], "jacobi", "hrnet"),
+            (["--svd_impl", "lapack"], "lapack", None)):
+        built = build_predictor(args("--device", "cpu", "-C", "--pose_shape_cfg",
+                                     str(cfg), *extra))
+        assert built["pose_shape_model"].svd_impl == svd_impl
+        if loaded:
+            source = predictor if loaded == "pose_shape_model" else hrnet
+            got = built[loaded].state_dict()
+            assert all(torch.equal(got[k], v) for k, v in
+                       source.state_dict().items()), extra
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        main(["-I", "x", "-S", "y", "--device", "cpu", "--num_devices", "2"])
 
 
 def test_cli_on_an_uncropped_photo(tmp_path):

@@ -120,6 +120,8 @@ def _scene_tables(scene, device, hw):
       batch8     8 perspective meshes, A = 12 (256^2)
       batched4   the batched figure's render of 4 images: 24 meshes, A = 12
       samples    the samples figure's 18 meshes, A = 12
+      sil8       the evaluation's mode silhouettes: 8 meshes, A = 3 (256^2)
+      sil80      its sample silhouettes: 80 meshes, A = 3 (256^2)
     """
     if scene == "triangles":
         return _triangle_tables(device, hw)
@@ -133,6 +135,9 @@ def _scene_tables(scene, device, hw):
         return chip_smoke.predict_scene(device, img_wh=hw[0], batch=4).tables
     if scene == "samples":
         return chip_smoke.samples_scene(device, img_wh=hw[0]).tables
+    if scene.startswith("sil"):
+        return chip_smoke.silhouette_scene(device, batch=int(scene[3:]),
+                                           img_wh=hw[0]).tables
     return chip_smoke.train_scene(device, batch=8).tables
 
 
@@ -144,7 +149,9 @@ def _scene_tables(scene, device, hw):
                                       ("eval", (256, 256)),
                                       ("batch8", (256, 256)),
                                       ("batched4", (512, 512)),
-                                      ("samples", (512, 512))])
+                                      ("samples", (512, 512)),
+                                      ("sil8", (256, 256)),
+                                      ("sil80", (256, 256))])
 def test_kernel_matches_plain_on_card(cuda_device, scene, hw):
     tables = _scene_tables(scene, cuda_device, hw)
     before = trc.rasterize_packed_cuda.launches
@@ -177,7 +184,9 @@ def test_kernel_is_deterministic_on_card(cuda_device, scene, hw):
                                       ("sliver", chip_smoke.SLIVER_HW),
                                       ("batch8", (256, 256)),
                                       ("batched4", (512, 512)),
-                                      ("samples", (512, 512))])
+                                      ("samples", (512, 512)),
+                                      ("sil8", (256, 256)),
+                                      ("sil80", (256, 256))])
 def test_face_boxes_kernel_equals_plain_on_card(cuda_device, scene, hw):
     """Tolerance 0: the kernel rounds as the torch ops do. The scenes'
     tables were packed on the card, so their boxes are the kernel's."""
@@ -191,6 +200,8 @@ def test_face_boxes_kernel_equals_plain_on_card(cuda_device, scene, hw):
         built = chip_smoke.samples_scene(cuda_device, img_wh=hw[0])
     elif scene == "triangles":
         built = chip_smoke.triangle_scene(cuda_device)
+    elif scene.startswith("sil"):
+        built = chip_smoke.silhouette_scene(cuda_device, batch=int(scene[3:]))
     else:
         built = chip_smoke.predict_scene(cuda_device, img_wh=hw[1])
     fv, _ = trc.face_vertices(built.screen, built.faces)
@@ -217,3 +228,29 @@ def test_face_boxes_kernel_equals_plain_on_odd_vertices(cuda_device):
     for hw in ((64, 64), (48, 100)):
         assert torch.equal(trc.face_boxes_cuda(fv, hw),
                            trc.face_boxes_plain(fv, hw))
+
+
+def test_silhouette_tables_carry_the_iuv_alone():
+    """The renderer's silhouette mode packs A = 3 (the evaluation's shape),
+    and its render on the CPU is IUV, depth and silhouettes, no colour."""
+    scene = chip_smoke.silhouette_scene("cpu", batch=2, img_wh=32)
+    assert scene.vert_attrs.shape == (2, 7829, 3)
+    assert scene.tables.face_attrs.shape[-1] == 9
+    renderer = TexturedIUVRenderer("cpu", img_wh=32, render_rgb=False)
+    out = renderer(torch.zeros(1, 6890, 3), cam_t=torch.tensor([[0.0, 0.0, 2.5]]),
+                   orthographic_scale=torch.ones(1, 2))
+    assert sorted(out) == ["depth_images", "iuv_images", "silhouettes"]
+
+
+@pytest.mark.cuda
+def test_gesdd_svd_on_card_equals_cpu(cuda_device):
+    """The LAPACK-sign SVD is elementwise ops in a fixed order with its
+    square roots in float64: the card gives the CPU's numbers bit for bit
+    on 2,000 F + I matrices (tol 0)."""
+    from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import svd3x3_gesdd
+    F = torch.as_tensor(np.random.RandomState(5).randn(2000, 3, 3) * 0.5
+                        + np.eye(3), dtype=torch.float32)
+    card = [a.cpu() for a in svd3x3_gesdd(F.to(cuda_device))]
+    cpu = svd3x3_gesdd(F)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a, b)
