@@ -12,8 +12,8 @@ Phases (any failure exits non-zero before the final line):
      at 512^2, A=12, as the renderer packs them (run twice: the outputs must
      be identical); a hand-made scene of shared edges and equal-depth ties
      (all outputs equal); a scene of slivers, off-screen faces and a face
-     larger than the image; the evaluation shape, 1 mesh at 256^2, A=3; and
-     the training shape, 72 meshes at 256^2, A=12, perspective;
+     larger than the image; and the evaluation shape, 1 mesh at 256^2, A=3
+     (the training shape is phase 7's);
   3. drive the main path through the user's entry point,
      `run_predict_torch.py --cropped_images` on 3 demo photos at full width
      (HRNet-W48, ResNet-18, 50 samples, 512^2 renders, random weights), with
@@ -23,13 +23,12 @@ Phases (any failure exits non-zero before the final line):
      against the same core on the CPU (plain rasterizer) on small inputs from
      3 seeds, with the kernel given the CPU's own tables, and report why
      colours differ where they do;
-  4. time the per-image predict and its stages; the kernel at the predict,
-     evaluation and training shapes beside its bound at each (the bytes it
-     must move and the pixel-face tests the function needs); the device
-     launches of one kernel call, counted from a profile; the rasterize step
-     (tables + kernel) and its parts on the host's clock and the card's, at
-     the predict and training shapes; and the kernel's plain version at the
-     predict shape;
+  4. time the per-image predict and its stages; the kernel at the predict
+     and evaluation shapes beside its bound at each (the bytes it must move
+     and the pixel-face tests the function needs); the device launches of
+     one kernel call, counted from a profile; the rasterize step (tables +
+     kernel) and its parts on the host's clock and the card's, at the
+     predict shape; and the kernel's plain version at the predict shape;
   5. the batched and figure paths, each driven with the launch counts set
      to 0 just before it and read just after: (a) both kernels against their
      plain versions on the tables of the batched figure's render (4 images,
@@ -60,7 +59,24 @@ Phases (any failure exits non-zero before the final line):
      `--dataset 3dpw`, no launch; (e) frames/s at batch 1 and 8, one step's
      profile, the predictor with each 3x3 SVD, the kernels at the two eval
      shapes beside their bounds; (f) the LAPACK-sign SVD on the card
-     against the CPU on 2,000 matrices. Each phase logs its wall time.
+     against the CPU on 2,000 matrices;
+  7. training at full width (ResNet-18 on the 256^2 proxy, EMBED_DIM 256,
+     batch 72, 8 samples in stage 2, random weights, synthetic SMPL and the
+     synthetic fallback dataset's poses, backgrounds and 1200 x 800 uint8
+     atlases): (a) both kernels against their plain versions on one
+     stage-1 batch's render tables, built by the driver's
+     make_synth_data_fn (72 meshes at 256^2, A=12, perspective); (b)
+     `run_train_torch.py -O LOSS.STAGE_CHANGE_EPOCH 1 --num_epochs 2` (4
+     train and 2 val steps an epoch, stage 1 then stage 2; one launch of
+     each kernel a step, 12), its log.pkl and epoch_000.tar (the
+     reference's keys, loaded strict=True), then `-R 0` (epoch 1 again, 6
+     launches); (c) a stage-2 step at B=4, 64^2 on the card against the
+     CPU (the same weights, draws, proxy and targets), and the card's
+     synthetic batch against the CPU's; (d) train img/s per stage at B=72,
+     the step split into synth / forward / backward / Adam, launches and
+     the busy share from a profile, the upload of a loader batch, and the
+     kernels at the path's tables beside their bounds and plain versions.
+     Each phase logs its wall time.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -290,40 +306,91 @@ def silhouette_scene(device, batch=8, img_wh=256, seed=7):
     return make_scene(screen, renderer.faces, iuv, (img_wh, img_wh))
 
 
-def train_scene(device, batch=72, img_wh=256, focal_length=300.0, seed=2):
-    """The training shape: `batch` synthetic-SMPL meshes with seeded poses,
-    shapes and camera translations at 256^2, A = 12, projected as the JAX
-    renderer's `_to_screen` does for projection_type="perspective":
-    x = f X / Z + wh / 2, z = Z.
+def train_cfg(img_wh=256, num_samples=8):
+    """The training configuration (the defaults: ResNet-18, EMBED_DIM 256,
+    batch 72) at proxy size img_wh, the focal length scaled with it (300 px
+    at 256^2) so the body fills the image at any size."""
+    from hierarchicalprobabilistic3dhuman_torch.configs import (
+        get_pose_shape_cfg_defaults)
+    cfg = get_pose_shape_cfg_defaults()
+    cfg.DATA.PROXY_REP_SIZE = img_wh
+    cfg.LOSS.NUM_SAMPLES = num_samples
+    cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH = 300.0 * img_wh / 256
+    return cfg
+
+
+def train_parts(device, cfg, seed=0):
+    """The predictor (weights drawn from a CPU generator, so every device
+    gets the same ones), synthetic SMPL, the perspective renderer and Canny
+    of the training configuration `cfg`, on `device`."""
+    from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
+        build_pose_shape_model)
+    from hierarchicalprobabilistic3dhuman_torch.models.canny_edge_detector import (
+        CannyEdgeDetector)
+    from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    model = build_pose_shape_model(cfg, "jacobi")
+    init_weights(model, torch.Generator().manual_seed(seed))
+    renderer = TexturedIUVRenderer(
+        device, img_wh=cfg.DATA.PROXY_REP_SIZE, projection_type="perspective",
+        perspective_focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH)
+    edge = CannyEdgeDetector(device, non_max_suppression=cfg.DATA.EDGE_NMS,
+                             gaussian_filter_std=cfg.DATA.EDGE_GAUSSIAN_STD,
+                             gaussian_filter_size=cfg.DATA.EDGE_GAUSSIAN_SIZE,
+                             threshold=cfg.DATA.EDGE_THRESHOLD)
+    return model.to(device), SMPL.synthetic(device), renderer, edge
+
+
+def train_batch(batch, img_wh, seed):
+    """One batch as the training loader hands it over: seeded poses,
+    uint8 backgrounds and 1200 x 800 uint8 texture atlases of the synthetic
+    fallback dataset (numpy)."""
+    from hierarchicalprobabilistic3dhuman_torch.data.loader import DataLoader
+    from hierarchicalprobabilistic3dhuman_torch.data.on_the_fly_smpl_train_dataset import (
+        OnTheFlySMPLTrainDataset)
+    dataset = OnTheFlySMPLTrainDataset.synthetic(n=batch, img_wh=img_wh, seed=seed)
+    return next(iter(DataLoader(dataset, batch_size=batch, num_workers=0)))
+
+
+class TableRecorder:
+    """The training renderer, keeping the Scene (packed tables) of its last
+    call."""
+
+    def __init__(self, renderer):
+        self.renderer = renderer
+        self.faces = renderer.faces
+
+    def __call__(self, vertices, cam_t, lights_rgb_settings, textures):
+        screen, vert_attrs = self.renderer.raster_inputs(vertices, cam_t,
+                                                         textures=textures)
+        wh = self.renderer.img_wh
+        self.scene = make_scene(screen, self.faces, vert_attrs, (wh, wh))
+        return self.renderer(vertices, cam_t=cam_t, textures=textures,
+                             lights_rgb_settings=lights_rgb_settings)
+
+
+def train_scene(device, batch=72, img_wh=256, seed=2):
+    """The training render's tables: one stage-1 synthetic batch of `batch`
+    meshes from the synthetic fallback dataset, built by the driver's
+    make_synth_data_fn (random shapes, cameras and lights, perspective
+    projection, atlases sampled per vertex): A = 12.
 
     :return: Scene with screen (batch, 7829, 3)
     """
-    from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
-    from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
-        X_AXIS, ZERO_T)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
-    from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
-        aa_rotate_translate_points)
-
-    rng = np.random.RandomState(seed)
-
-    def tensor(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
-
-    smpl = SMPL.synthetic(device)
-    verts = smpl(betas=tensor(rng.randn(batch, 10)),
-                 body_pose=tensor(rng.randn(batch, 69) * 0.3),
-                 global_orient=tensor(rng.randn(batch, 3) * 0.3))["vertices"]
-    verts = aa_rotate_translate_points(verts, X_AXIS, np.pi, ZERO_T)
-    cam_t = tensor([0.0, -0.2, 2.5] + rng.randn(batch, 3) * [0.05, 0.05, 0.25])
-    renderer = TexturedIUVRenderer(device, img_wh=img_wh)
-    _, vert_attrs = renderer.raster_inputs(
-        verts, cam_t, tensor(np.ones((batch, 2))), tensor(rng.rand(batch, 6890, 3)))
-    p = verts[:, renderer.verts_map, :] + cam_t[:, None, :]
-    z = p[..., 2:3]
-    screen = torch.cat([focal_length * p[..., :2] / z + img_wh / 2.0, z], dim=-1)
-    return make_scene(screen, renderer.faces, vert_attrs, (img_wh, img_wh))
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        batch_to_device, make_synth_data_fn)
+    from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
+    device = torch.device(device)
+    cfg = train_cfg(img_wh)
+    _, smpl, renderer, edge = train_parts(device, cfg)
+    recorder = TableRecorder(renderer)
+    synth = make_synth_data_fn(cfg, smpl, recorder, edge)
+    with torch.no_grad():
+        synth(Draws(torch.Generator(device=device).manual_seed(seed)),
+              *batch_to_device(train_batch(batch, img_wh, seed), device))
+    return recorder.scene
 
 
 def triangle_scene(device):
@@ -489,7 +556,7 @@ def phase_kernel_vs_plain(device):
     worst = 0.0
     worst_box = 0
     for name, build in (("predict", predict_scene), ("sliver", sliver_scene),
-                        ("eval", eval_scene), ("train", train_scene)):
+                        ("eval", eval_scene)):
         scene = build(device)
         covered, attr_err, box_diff, kernel_out = hold_to_plain(
             "phase 2", name, scene)
@@ -872,7 +939,7 @@ def host_and_card_ms(fn, repeats=5, inner=20):
     return statistics.median(enqueue), statistics.median(finished)
 
 
-def time_raster_step(name, scene):
+def time_raster_step(name, scene, tag="phase 4"):
     """The rasterize step as the renderer runs it, tables and kernels, and
     its parts: all four tables (pack_face_tables), the fourth alone from its
     kernel and from its plain version, and the rasterizer on packed tables."""
@@ -890,7 +957,7 @@ def time_raster_step(name, scene):
             ("rasterize (tables + kernels)", lambda: rasterize(*inputs, hw))):
         enqueue_ms, finished_ms = host_and_card_ms(fn)
         p = device_profile(fn)
-        log(f"[phase 4] rasterize step {name}, {part}: host enqueues it in "
+        log(f"[{tag}] rasterize step {name}, {part}: host enqueues it in "
             f"{enqueue_ms:.4f} ms, finished on the card after "
             f"{finished_ms:.4f} ms; {p['launches']} device launches, device "
             f"busy {p['device_ms']:.4f} ms")
@@ -984,8 +1051,7 @@ def phase_timing(argv, scenes):
         out[name] = time_rasterizer("phase 4", name, scene, covered)
     predict = scenes["predict"][0]
     out["device_launches_per_call"] = rasterizer_device_launches(predict.tables)
-    for name in ("predict", "train"):
-        time_raster_step(name, scenes[name][0])
+    time_raster_step("predict", scenes["predict"][0])
     out["face_boxes"] = time_face_boxes(scenes)
     out["plain_ms"] = median_ms(lambda: rasterize_packed_plain(predict.tables))
     log(f"[phase 4] rasterize predict: plain version {out['plain_ms']:.2f} ms")
@@ -1825,6 +1891,323 @@ def hrnet_predict(kwargs, stack):
         bbox_scale_factor=kwargs["pose_shape_cfg"].DATA.BBOX_SCALE_FACTOR)(stack)
 
 
+# Phase 7: training. The card-vs-CPU step's shape (the plain rasterizer
+# renders the CPU's batch), and the least share of the synthetic proxy's
+# values that must agree within 1e-4 between the card and the CPU: the IUV
+# is rounded to whole labels, so a vertex that moves by the last bits of its
+# SMPL sums can flip a label and with it an edge or a heatmap pixel.
+TRAIN_CHECK = {"batch": 4, "img_wh": 64, "num_samples": 2}
+TRAIN_PROXY_SHARE = 0.99
+TRAIN_STEPS_A_EPOCH = 6          # 288 / 72 train + 144 / 72 val poses
+TRAIN_METRICS = ['PVE', 'PVE-SC', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC', 'MPJPE-PA',
+                 'joints2D-L2E']
+CKPT_KEYS = {"epoch", "best_epoch", "best_epoch_val_metrics", "model_state_dict",
+             "best_model_state_dict", "optimiser_state_dict"}
+
+
+class OutputCapture(torch.nn.Module):
+    """A predictor that keeps its last input and outputs, their gradients
+    retained (for the float64 noise floor of its gradients)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        self.x = x
+        self.out = self.model(x)
+        for v in self.out.values():
+            if v.requires_grad:
+                v.retain_grad()
+        return self.out
+
+
+def float64_gradients(model64, capture):
+    """The predictor's parameter gradients in float64 (model64: a float64
+    copy of the weights `capture` ran with, in train mode) from capture's
+    input and upstream gradients: where a float32 gradient differs from
+    these, rounding alone moved it."""
+    out64 = model64.train()(capture.x.double())
+    keys = [k for k, v in capture.out.items() if v.grad is not None]
+    torch.autograd.backward([out64[k] for k in keys],
+                            [capture.out[k].grad.double() for k in keys])
+    return {n: p.grad for n, p in model64.named_parameters()}
+
+
+def gradient_diffs(model, ref_grads, floor_grads):
+    """Per parameter tensor: |grad - ref| and |grad - float64| over the
+    largest |ref| and |float64| entries."""
+    diffs, floors = {}, {}
+    for name, p in model.named_parameters():
+        g = p.grad.detach().cpu().double()
+        ref = ref_grads[name].detach().cpu().double()
+        diffs[name] = float((g - ref).abs().max() / ref.abs().max())
+        f = floor_grads[name].detach().cpu()
+        floors[name] = float((g - f).abs().max() / f.abs().max())
+    return diffs, floors
+
+
+def train_card_vs_cpu(device, batch=4, img_wh=64, num_samples=2, seed=5):
+    """A stage-2 step on the card against the CPU: the same weights, the
+    same draws (a CPU generator's, delivered to each device), and the CPU's
+    synthetic proxy and targets moved to the card. Also the card's own
+    synthetic batch against the CPU's.
+
+    :return: dict of the differences: loss and term relative differences,
+        per-tensor gradient differences and their float32 noise floors
+        (see float64_gradients), BatchNorm buffers (of each tensor's
+        largest), the proxy's equal share and the targets' max differences
+    """
+    import copy
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        TrainStep, batch_to_device, make_synth_data_fn)
+    from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
+    cfg = train_cfg(img_wh, num_samples)
+    cpu = torch.device("cpu")
+    host_batch = train_batch(batch, img_wh, seed)
+    out = {}
+    synthetic = {}
+    for dev in (cpu, device):
+        model, smpl, renderer, edge = train_parts(dev, cfg, seed)
+        with torch.no_grad():
+            synthetic[dev.type] = make_synth_data_fn(cfg, smpl, renderer, edge)(
+                Draws(torch.Generator().manual_seed(seed), dev),
+                *batch_to_device(host_batch, dev))
+        if dev == cpu:
+            model64 = copy.deepcopy(model).double()
+            proxy, targets = synthetic["cpu"]
+        capture = OutputCapture(model.train())
+        step = TrainStep(capture, cfg, smpl, renderer, edge, cfg.LOSS.STAGE2,
+                         None, train=True)
+        loss, _, terms = step.forward_loss(
+            Draws(torch.Generator().manual_seed(seed + 1), dev), proxy.to(dev),
+            {k: v.to(dev) for k, v in targets.items()})
+        loss.backward()
+        out[dev.type] = (model, capture, loss, terms)
+
+    cpu_model, cpu_capture, cpu_loss, cpu_terms = out["cpu"]
+    card_model, _, card_loss, card_terms = out[device.type]
+    rel = {"loss": abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())}
+    for k in cpu_terms:
+        rel[k] = (abs(card_terms[k].item() - cpu_terms[k].item())
+                  / max(abs(cpu_terms[k].item()), 1e-6))
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    floor_grads = float64_gradients(model64, cpu_capture)
+    diffs, _ = gradient_diffs(card_model, cpu_grads, floor_grads)
+    _, cpu_floors = gradient_diffs(cpu_model, cpu_grads, floor_grads)
+    buffers = max(float((b.cpu() - dict(cpu_model.named_buffers())[n]).abs().max()
+                        / dict(cpu_model.named_buffers())[n].abs().max())
+                  for n, b in card_model.named_buffers()
+                  if n.endswith(("running_mean", "running_var")))
+    finite = all(torch.isfinite(p.grad).all() for p in card_model.parameters())
+
+    (cp, ct), (kp, kt) = synthetic["cpu"], synthetic[device.type]
+    share = float(torch.isclose(kp.cpu(), cp, rtol=0, atol=1e-4).float().mean())
+    target_diffs = {k: float((kt[k].cpu().double() - ct[k].double()).abs().max())
+                    for k in ct}
+    return {"rel": rel, "grad_diffs": diffs, "grad_floors": cpu_floors,
+            "buffers": buffers, "finite": finite, "proxy_share": share,
+            "target_diffs": target_diffs}
+
+
+def check_card_vs_cpu_step(tag, r):
+    """Log and hold phase 7c's readings: loss and terms within 1e-4
+    relative, BatchNorm buffers within 1e-5 of each tensor's largest, every
+    gradient finite and within max(1e-3, 10 x its float32 noise floor) of
+    that tensor's largest, and the synthetic proxy's equal share."""
+    diffs, floors = r["grad_diffs"], r["grad_floors"]
+    q = np.quantile(list(diffs.values()), [0.5, 0.9, 1.0])
+    worst = max(diffs, key=diffs.get)
+    over = {n: (round(diffs[n], 6), round(floors[n], 6)) for n in diffs
+            if diffs[n] > max(1e-3, 10 * floors[n])}
+    log(f"[{tag}] stage-2 step card vs CPU: loss and terms "
+        f"{ {k: f'{v:.1e}' for k, v in r['rel'].items()} } relative (tol 1e-4); "
+        f"BatchNorm buffers {r['buffers']:.1e} of the largest (tol 1e-5); "
+        f"gradients, of each tensor's largest: median {q[0]:.1e}, 90% "
+        f"{q[1]:.1e}, max {q[2]:.1e} ({worst}, its float32 noise floor "
+        f"{floors[worst]:.1e}); beyond max(1e-3, 10 x floor): {over}; all "
+        f"finite {r['finite']}")
+    log(f"[{tag}] synthetic batch card vs CPU: {r['proxy_share']:.6f} of the "
+        f"proxy's values equal within 1e-4 (floor {TRAIN_PROXY_SHARE}); "
+        f"targets' max abs diffs "
+        f"{ {k: f'{v:.1e}' for k, v in r['target_diffs'].items()} }")
+    if (max(r["rel"].values()) > 1e-4 or r["buffers"] > 1e-5 or over
+            or not r["finite"] or r["proxy_share"] < TRAIN_PROXY_SHARE):
+        raise AssertionError(f"[{tag}] the train step on the card disagrees "
+                             f"with the CPU")
+
+
+def check_experiment(tag, exp, epochs):
+    """log.pkl holds `epochs` epochs of finite losses and metrics, and
+    epoch_000.tar is the reference's dict, which the predict/eval loader
+    loads strict=True into a fresh predictor."""
+    import pickle
+    from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
+        build_pose_shape_model)
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import (
+        load_checkpoint, load_predictor_state_dict)
+    with open(os.path.join(exp, "log.pkl"), "rb") as f:
+        history = pickle.load(f)
+    path = os.path.join(exp, "saved_models", "epoch_000.tar")
+    keys = set(load_checkpoint(path))
+    build_pose_shape_model(train_cfg(), "jacobi").load_state_dict(
+        load_predictor_state_dict(path), strict=True)
+    lengths = {len(v) for v in history.values()}
+    finite = all(np.isfinite(v).all() for v in history.values())
+    log(f"[{tag}] log.pkl: {lengths} epochs, all finite {finite}; train "
+        f"losses {history['train_losses']}, val losses "
+        f"{history['val_losses']}; epoch_000.tar keys {sorted(keys)}, loaded "
+        f"strict=True")
+    if lengths != {epochs} or not finite or keys != CKPT_KEYS:
+        raise AssertionError(f"[{tag}] bad training outputs in {exp}")
+
+
+def time_train_steps(device):
+    """Full-width steps (B = 72, 256^2, ResNet-18, EMBED_DIM 256, 8 samples)
+    on one uploaded batch: per stage, img/s from the host clock ending in a
+    synchronize (median of 5 steps after one warm-up, each step's loss read
+    as the loop reads it), the step split into synth / forward / backward /
+    Adam with CUDA events (medians of 5), and a profile of one step; then
+    the upload of a loader batch (pinned, host clock ending in a sync)."""
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        TrainStep, batch_to_device)
+    from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
+    cfg = train_cfg()
+    B = cfg.TRAIN.BATCH_SIZE
+    model, smpl, renderer, edge = train_parts(device, cfg)
+    optimizer = torch.optim.Adam(model.parameters(), lr=cfg.TRAIN.LR,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    host_batch = train_batch(B, cfg.DATA.PROXY_REP_SIZE, seed=3)
+    arrays = batch_to_device(host_batch, device)
+    draws = Draws(torch.Generator(device=device).manual_seed(0))
+    out = {}
+    for stage in (1, 2):
+        metrics = TRAIN_METRICS + (["joints2Dsamples-L2E"] if stage == 2 else [])
+        step = TrainStep(model, cfg, smpl, renderer, edge,
+                               getattr(cfg.LOSS, f"STAGE{stage}"), optimizer,
+                               train=True, metrics_to_track=metrics)
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _, _ = step(draws, *arrays)
+            float(loss)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        finite = all(torch.isfinite(p.grad).all() for p in model.parameters())
+        step_ms = statistics.median(walls[1:])
+
+        parts = []
+        for _ in range(6):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            with torch.no_grad():
+                proxy, targets = step.synth(draws, *arrays)
+            ev[1].record()
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            loss, _, _ = step.forward_loss(draws, proxy, targets)
+            ev[2].record()
+            loss.backward()
+            ev[3].record()
+            optimizer.step()
+            ev[4].record()
+            torch.cuda.synchronize()
+            parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+        split = dict(zip(("synth", "forward", "backward", "adam"),
+                         np.median(np.asarray(parts[1:]), axis=0).tolist()))
+        prof = device_profile(lambda: step(draws, *arrays))
+        out[f"stage{stage}"] = {"step_ms": step_ms, "img_s": B / step_ms * 1e3,
+                                "split_ms": split, "launches": prof["launches"],
+                                "busy": prof["device_ms"] / prof["wall_ms"]}
+        log(f"[phase 7d] stage {stage} train step, B={B} 256^2: median "
+            f"{step_ms:.2f} ms ({B / step_ms * 1e3:.2f} img/s; steps "
+            f"{[round(t, 2) for t in walls]}); split (CUDA events) "
+            f"{ {k: round(v, 3) for k, v in split.items()} } ms; profile: "
+            f"{prof['launches']} device launches, device busy "
+            f"{prof['device_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+            f"({prof['device_ms'] / prof['wall_ms']:.1%}); gradients finite "
+            f"{finite}")
+        for e in sorted(prof["rows"], key=lambda e: -e.self_device_time_total)[:5]:
+            log(f"[phase 7d]   {e.self_device_time_total / 1e3:8.3f} ms "
+                f"x{e.count:<5d} {e.key[:90]}")
+        if not finite:
+            raise AssertionError(f"stage {stage}: non-finite gradients at "
+                                 f"full width")
+
+    nbytes = sum(host_batch[k].nbytes for k in ("pose", "background", "texture"))
+    uploads = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch_to_device(host_batch, device)
+        torch.cuda.synchronize()
+        uploads.append((time.perf_counter() - t0) * 1e3)
+    upload_ms = statistics.median(uploads[1:])
+    out["upload_ms"], out["upload_bytes"] = upload_ms, nbytes
+    log(f"[phase 7d] upload of a loader batch ({nbytes} bytes, pinned then "
+        f"copied): median {upload_ms:.2f} ms ({nbytes / upload_ms / 1e6:.2f} "
+        f"GB/s), {upload_ms / out['stage1']['step_ms']:.1%} of a stage-1 step")
+    return out
+
+
+def phase_train(workdir, device):
+    """Phase 7: training at full width (see the module docstring)."""
+    from hierarchicalprobabilistic3dhuman_torch.cli.train import main as train_main
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        rasterize_packed_plain)
+    t0 = time.perf_counter()
+
+    def lap(tag):
+        nonlocal t0
+        log(f"[{tag}] took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    readings = {}
+    scene = train_scene(device)
+    covered, attr_err, box_err, _ = hold_to_plain("phase 7a", "train", scene)
+    readings.update(attr_err=attr_err, box_err=box_err)
+    lap("phase 7a")
+
+    exp = os.path.join(workdir, "train_experiment")
+    steps = 2 * TRAIN_STEPS_A_EPOCH
+    _, readings["launches"] = run_path(
+        "phase 7b", "run_train_torch.py -O LOSS.STAGE_CHANGE_EPOCH 1 "
+        "--num_epochs 2 (B=72, 256^2, stage 1 then 2)",
+        lambda: train_main(["-E", exp, "-O", "LOSS.STAGE_CHANGE_EPOCH", "1",
+                            "--num_epochs", "2"]), expect=steps)
+    check_experiment("phase 7b", exp, epochs=2)
+    _, readings["resume_launches"] = run_path(
+        "phase 7b", "run_train_torch.py -R 0 --num_epochs 2 (epoch 1 again)",
+        lambda: train_main(["-E", exp, "-R", "0", "--num_epochs", "2"]),
+        expect=TRAIN_STEPS_A_EPOCH)
+    check_experiment("phase 7b", exp, epochs=2)
+    lap("phase 7b")
+
+    check_card_vs_cpu_step("phase 7c", train_card_vs_cpu(device, **TRAIN_CHECK))
+    lap("phase 7c")
+
+    readings["steps"] = time_train_steps(device)
+    readings["kernel"] = time_rasterizer("phase 7d", "train", scene, covered)
+    readings["face_boxes"] = time_face_boxes({"train": (scene, covered)},
+                                             tag="phase 7d")["train"]
+    readings["plain_ms"] = once_ms(lambda: rasterize_packed_plain(scene.tables))
+    readings["face_boxes_plain_ms"] = time_face_boxes_plain(scene)
+    log(f"[phase 7d] rasterize train: plain version {readings['plain_ms']:.2f} "
+        f"ms (one call), face_boxes plain {readings['face_boxes_plain_ms']:.4f} ms")
+    time_raster_step("train", scene, tag="phase 7d")
+    lap("phase 7d")
+    return readings
+
+
+def time_face_boxes_plain(scene):
+    """face_boxes' plain version on a scene's faces, median of 5 x 20."""
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        face_boxes_plain, face_vertices)
+    fv, _ = face_vertices(scene.screen, scene.faces)
+    return median_ms(lambda: face_boxes_plain(fv, scene.tables.image_hw), inner=20)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1854,19 +2237,23 @@ def main():
         del scenes
         batched = phase_batched(workdir)
         evaluation = timed_phase("phase 6", phase_eval, workdir, device)
+        training = timed_phase("phase 7", phase_train, workdir, device)
 
     boxes = timing["face_boxes"]
     path_launches = {"per_image_3_photos": launches,
                      **{f"{path}_{'1_photo' if path == 'samples' else '12_photos'}":
                         counts for path, counts in batched["launches"].items()},
-                     **evaluation["launches"]}
+                     **evaluation["launches"],
+                     "train_2_epochs": training["launches"],
+                     "train_resume_1_epoch": training["resume_launches"]}
     kernels = [{
         "name": "rasterize",
         "route": "cuda",
         "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:240",
         "launches": launches["rasterize"],
-        "max_abs_err": max(attr_err, batched["attr_err"], evaluation["attr_err"]),
+        "max_abs_err": max(attr_err, batched["attr_err"], evaluation["attr_err"],
+                           training["attr_err"]),
         "ms": timing["predict"]["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["predict"]["bound_ms"],
@@ -1874,8 +2261,10 @@ def main():
         "library_ms": None,
         "ms_eval": timing["eval"]["kernel_ms"],
         "bound_ms_eval": timing["eval"]["bound_ms"],
-        "ms_train": timing["train"]["kernel_ms"],
-        "bound_ms_train": timing["train"]["bound_ms"],
+        "ms_train": training["kernel"]["kernel_ms"],
+        "bound_ms_train": training["kernel"]["bound_ms"],
+        "bound_by_train": training["kernel"]["bound_by"],
+        "plain_ms_train": training["plain_ms"],
         "ms_batched": batched["kernels"]["batched"]["kernel_ms"],
         "bound_ms_batched": batched["kernels"]["batched"]["bound_ms"],
         "bound_by_batched": batched["kernels"]["batched"]["bound_by"],
@@ -1896,7 +2285,8 @@ def main():
         "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:97",
         "launches": launches["face_boxes"],
-        "max_abs_err": max(box_err, batched["box_err"], evaluation["box_err"]),
+        "max_abs_err": max(box_err, batched["box_err"], evaluation["box_err"],
+                           training["box_err"]),
         "ms": boxes["predict"]["kernel_ms"],
         "plain_ms": boxes["plain_ms"],
         "bound_ms": boxes["predict"]["bound_ms"],
@@ -1904,8 +2294,9 @@ def main():
         "library_ms": None,
         "ms_eval": boxes["eval"]["kernel_ms"],
         "bound_ms_eval": boxes["eval"]["bound_ms"],
-        "ms_train": boxes["train"]["kernel_ms"],
-        "bound_ms_train": boxes["train"]["bound_ms"],
+        "ms_train": training["face_boxes"]["kernel_ms"],
+        "bound_ms_train": training["face_boxes"]["bound_ms"],
+        "plain_ms_train": training["face_boxes_plain_ms"],
         "ms_batched": batched["face_boxes"]["batched"]["kernel_ms"],
         "bound_ms_batched": batched["face_boxes"]["batched"]["bound_ms"],
         "ms_samples": batched["face_boxes"]["samples"]["kernel_ms"],
@@ -1917,10 +2308,11 @@ def main():
         "launches_by_path": {k: v["face_boxes"] for k, v in path_launches.items()},
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
-    for tag, readings in (("phase 5", batched), ("phase 6", evaluation)):
+    for tag, readings in (("phase 5", batched), ("phase 6", evaluation),
+                          ("phase 7", training)):
         log(f"[{tag}] readings " + json.dumps(
             {k: v for k, v in readings.items()
-             if k not in ("kernels", "face_boxes", "launches")}))
+             if k not in ("kernels", "face_boxes", "launches", "kernel")}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,7 @@
 """Model-file paths (reference: configs/paths.py:1-20).
 
 Every path can be overridden via an environment variable; by default the
-shipped model files resolve relative to the repository root. Training
-dataset paths arrive with the training slice of the port.
+shipped model files resolve relative to the repository root.
 """
 
 import os
@@ -30,3 +29,11 @@ DP_UV_PROCESSED_FILE = _p("HP3D_DP_UV_PROCESSED_FILE",
 # ------------------------- Eval Datasets -------------------------
 PW3D_PATH = _p("HP3D_PW3D_PATH", "./datasets/3DPW/test")
 SSP3D_PATH = _p("HP3D_SSP3D_PATH", "./datasets/ssp_3d")
+
+# ------------------------- Train Datasets -------------------------
+TRAIN_POSES_PATH = _p("HP3D_TRAIN_POSES_PATH", "./train_files/smpl_train_poses.npz")
+TRAIN_TEXTURES_PATH = _p("HP3D_TRAIN_TEXTURES_PATH", "./train_files/smpl_train_textures.npz")
+TRAIN_BACKGROUNDS_PATH = _p("HP3D_TRAIN_BACKGROUNDS_PATH", "./train_files/lsun_backgrounds/train")
+VAL_POSES_PATH = _p("HP3D_VAL_POSES_PATH", "./train_files/smpl_val_poses.npz")
+VAL_TEXTURES_PATH = _p("HP3D_VAL_TEXTURES_PATH", "./train_files/smpl_val_textures.npz")
+VAL_BACKGROUNDS_PATH = _p("HP3D_VAL_BACKGROUNDS_PATH", "./train_files/lsun_backgrounds/val")

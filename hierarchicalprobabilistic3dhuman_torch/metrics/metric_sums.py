@@ -1,12 +1,14 @@
-"""Per-frame evaluation metrics computed on the device, in torch.
+"""Per-batch metrics computed where the tensors are: training sums and
+evaluation per-frame values, in torch.
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/metrics/metric_sums.py
-(make_eval_frame_metrics_fn :54, _eval_frame_metrics :79): the eval step
-computes the per-frame metric values (Procrustes and scale alignments,
-sample minima, IOU confusion counts) where its tensors are, and the host
-fetches a few numbers per frame instead of the meshes, samples and
-silhouettes. They feed EvalMetricsTracker.update_per_batch_device. The
-training sums (make_metric_sums_fn :147) come with the training slice.
+(make_eval_frame_metrics_fn :54, _eval_frame_metrics :79,
+make_metric_sums_fn :147, _metric_sums :166): the eval step computes the
+per-frame metric values (Procrustes and scale alignments, sample minima,
+IOU confusion counts) and the train step the per-batch metric sums, so the
+host fetches a few numbers instead of the meshes, samples and silhouettes.
+They feed EvalMetricsTracker.update_per_batch_device and
+TrainingLossesAndMetricsTracker.update_per_batch_sums.
 """
 
 import torch
@@ -14,6 +16,8 @@ import torch
 from hierarchicalprobabilistic3dhuman_torch.utils.eval_utils import (
     procrustes_analysis_batch, scale_and_translation_transform_batch)
 from hierarchicalprobabilistic3dhuman_torch.utils.device import full_f32_matmul
+from hierarchicalprobabilistic3dhuman_torch.utils.joints2d_utils import (
+    undo_keypoint_normalisation)
 
 # metric family -> (pred key, target key, alignment) — mirrors
 # eval_metrics_tracker._POINT_METRICS.
@@ -127,3 +131,43 @@ def _eval_frame_metrics(pred, target, track):
                                ("false_negatives", ~ps & ts)):
                 out[f"num_samples_{name}"] = torch.sum(mask).to(torch.float32)
     return out
+
+
+def make_metric_sums_fn(metrics_to_track, img_wh):
+    """Build a fn (pred, target, pred_reposed_vertices,
+    target_reposed_vertices) -> dict of scalar sums, one per tracked metric,
+    plus the visible-sample count for joints2Dsamples-L2E. The key
+    conventions are the train step's metric data and targets. The
+    alignments run with TF32 off."""
+    track = list(metrics_to_track)
+
+    def f(pred, target, pred_reposed_vertices, target_reposed_vertices):
+        with full_f32_matmul():
+            return _metric_sums(pred, target, pred_reposed_vertices,
+                                target_reposed_vertices, track, img_wh)
+
+    return f
+
+
+def _metric_sums(pred, target, pred_reposed, target_reposed, track, img_wh):
+    def l2sum(a, b):
+        return torch.sum(torch.linalg.vector_norm(a - b, dim=-1))
+
+    pred = {**pred, "reposed_verts": pred_reposed}
+    target = {**target, "reposed_verts": target_reposed}
+    sums = {}
+    for m, (pk, tk, mode) in EVAL_POINT_METRICS.items():
+        if m in track:
+            sums[m] = l2sum(align(pred[pk], target[tk], mode), target[tk])
+    if "joints2D-L2E" in track:
+        p2d = undo_keypoint_normalisation(pred["joints2D"], img_wh)
+        sums["joints2D-L2E"] = l2sum(p2d, target["joints2D"])
+    if "joints2Dsamples-L2E" in track and "joints2Dsamples" in pred:
+        p = undo_keypoint_normalisation(pred["joints2Dsamples"], img_wh)
+        vis = target["joints2D_vis"][:, None, :]                     # (B, 1, 17)
+        err = torch.linalg.vector_norm(p - target["joints2D"][:, None],
+                                       dim=-1) * vis                 # (B, N, 17)
+        sums["joints2Dsamples-L2E"] = torch.sum(err)
+        sums["num_visib_joints2Dsamples"] = (
+            torch.sum(vis) * p.shape[1]).to(torch.float32)
+    return sums

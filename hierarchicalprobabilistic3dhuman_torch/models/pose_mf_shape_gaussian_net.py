@@ -14,7 +14,10 @@ pose_mf_shape_gaussian_net.py::PoseMFShapeGaussianNet (:81-241):
   * delta-I: the identity is added to each joint's F;
   * svd_impl (:98, :205-210): "jacobi" (the default), "lapack" (sgesdd's
     signs on the device, ops/lapack_svd3.py) or "lapack_callback" (numpy's
-    sgesdd on a host copy), the last two for reference checkpoints.
+    sgesdd on a host copy), the last two for reference checkpoints;
+  * encoder_bf16 (the JAX package's encoder_dtype=bfloat16, :107): the
+    encoder alone under torch.autocast to bfloat16; its parameters,
+    BatchNorm and the head stay float32.
 
 The head runs in full float32: on the card its matmuls run with TF32 off.
 Parameter names are the reference checkpoint's state-dict keys
@@ -61,12 +64,13 @@ class PoseMFShapeGaussianNet(nn.Module):
 
     def __init__(self, num_in_channels=18, embed_dim=256, delta_i=True,
                  delta_i_weight=1.0, num_smpl_betas=10, svd_sweeps=8,
-                 svd_impl="jacobi"):
+                 svd_impl="jacobi", encoder_bf16=False):
         super().__init__()
         if svd_impl not in SVD_IMPLS:
             raise ValueError(f"svd_impl must be one of {SVD_IMPLS}, got "
                              f"{svd_impl!r}")
         self.svd_impl = svd_impl
+        self.encoder_bf16 = encoder_bf16
         self.parents_dict = immediate_parents_to_all_parents(
             [int(p) for p in SMPL_PARENTS])
         self.num_joints = len(self.parents_dict)
@@ -100,7 +104,10 @@ class PoseMFShapeGaussianNet(nn.Module):
         self.depth_groups = [depth_groups[d] for d in sorted(depth_groups)]
 
     def forward(self, inputs):
-        feats = self.image_encoder(inputs)
+        with torch.autocast(inputs.device.type, dtype=torch.bfloat16,
+                            enabled=self.encoder_bf16):
+            # float32 out: each BatchNorm normalises in float32.
+            feats = self.image_encoder(inputs)
         with full_f32_matmul():
             return self._head(feats)
 

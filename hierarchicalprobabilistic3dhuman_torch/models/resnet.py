@@ -5,10 +5,43 @@ Counterpart of hierarchicalprobabilistic3dhuman_tpu/models/resnet.py:17-127
 taking `in_channels` inputs, no final FC, global-average-pooled features
 out. Parameter names are the reference checkpoint's state-dict keys
 (conv1, bn1, layer{s}.{i}.conv1 ..., downsample.0/.1).
+
+BatchNorm in train mode follows flax's nn.BatchNorm(momentum=0.9) (the JAX
+package's :30-68), not torch's: the batch is normalised with the biased
+variance E[x^2] - E[x]^2, and the running variance is updated with that
+same biased variance.
 """
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d with flax's train-mode statistics; the same parameter
+    and buffer names, and the same eval mode.
+
+    Train mode: mean = E[x], var = max(E[x^2] - E[x]^2, 0) over (N, H, W),
+    y = (x - mean) * weight / sqrt(var + eps) + bias, and under no_grad
+    running = (1 - momentum) * running + momentum * batch for both, with the
+    biased var (torch would use the unbiased one). Input of another dtype
+    (bfloat16 from an autocast conv) is normalised in the parameters' dtype.
+    """
+
+    def forward(self, x):
+        if x.dtype != self.weight.dtype:
+            x = x.to(self.weight.dtype)
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 class BasicBlock(nn.Module):
@@ -17,14 +50,14 @@ class BasicBlock(nn.Module):
     def __init__(self, in_planes, planes, stride=1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_planes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes))
+                BatchNorm2d(planes))
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -39,7 +72,7 @@ class ResNet(nn.Module):
     def __init__(self, layers=(2, 2, 2, 2), in_channels=18):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         in_planes = 64
         for stage, num_blocks in enumerate(layers):
             planes = 64 * 2 ** stage

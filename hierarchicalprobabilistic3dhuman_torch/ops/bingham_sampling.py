@@ -9,12 +9,17 @@ order are kept (the shortfall falls back to the highest acceptance ratios).
 The Gaussian draws `eps` and the uniform draws `w` may be passed in, so a
 test can hand the port the JAX sampler's own draws; otherwise they come from
 the caller's `torch.Generator`.
+
+Gradients flow through the reparameterised draw into the proper singular
+values and through U_proper/V_proper; the det signs folded into them are
+piecewise constant and carry none (`proper_svd_from_raw`, as the JAX
+sampler's :71-78 stops them).
 """
 
 import numpy as np
 import torch
 
-from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import proper_from_raw
+from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import det3x3, fold_det_signs
 from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
     quat_to_rotmat)
 
@@ -61,6 +66,13 @@ def bingham_sampling(A, num_samples, b=1.5, oversampling_ratio=8,
     return chosen, accept_ratio
 
 
+def proper_svd_from_raw(U, S, V):
+    """Raw SVD -> the proper convention, with the det signs detached:
+    U_proper and V_proper are rotations, S_proper[..., 2] carries
+    det(U) det(V)."""
+    return fold_det_signs(U, S, V, det3x3(U).detach(), det3x3(V).detach())
+
+
 def bingham_A_from_S_proper(S_proper):
     """Bingham diagonal from proper singular values."""
     zeros = torch.zeros_like(S_proper[..., 0])
@@ -81,7 +93,8 @@ def pose_matrix_fisher_sampling(pose_U, pose_S, pose_V, num_samples, b=1.5,
     :param eps, w: optional pre-drawn (B, J, N*K, 4) / (B, J, N*K) draws
     :return: (B, N, J, 3, 3) rotation matrix samples
     """
-    U_proper, S_proper, V_proper = proper_from_raw(pose_U, pose_S, pose_V)
+    U_proper, S_proper, V_proper = proper_svd_from_raw(pose_U, pose_S,
+                                                     pose_V)
     A = bingham_A_from_S_proper(S_proper)                   # (B, J, 4)
     quat_samples, _ = bingham_sampling(A, num_samples, b=b,
                                        oversampling_ratio=oversampling_ratio,

@@ -112,9 +112,15 @@ def det3x3(M):
 
 def proper_from_raw(U, S, V):
     """Fold det signs into the third column/value: U_proper and V_proper are
-    rotations and S_proper[..., 2] carries det(U) det(V)."""
-    detU = det3x3(U)
-    detV = det3x3(V)
+    rotations and S_proper[..., 2] carries det(U) det(V). The head's
+    convention: the signs keep their gradient, as in the JAX package's
+    _properize."""
+    return fold_det_signs(U, S, V, det3x3(U), det3x3(V))
+
+
+def fold_det_signs(U, S, V, detU, detV):
+    """U's and V's third columns times detU and detV, S's third value times
+    detU * detV."""
     U_proper = torch.cat([U[..., :2], U[..., 2:] * detU[..., None, None]], dim=-1)
     V_proper = torch.cat([V[..., :2], V[..., 2:] * detV[..., None, None]], dim=-1)
     S_proper = torch.cat([S[..., :2], S[..., 2:] * (detU * detV)[..., None]],

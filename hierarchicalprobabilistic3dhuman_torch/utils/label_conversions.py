@@ -2,7 +2,10 @@
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/utils/label_conversions.py
 (ALL_JOINTS_TO_COCO_MAP :25, ALL_JOINTS_TO_H36M_MAP :26, H36M_TO_J14 :28,
-the heatmaps :62-99, convert_heatmaps_to_2Djoints_coordinates :100): the
+TWENTYFOUR_PART_SEG_TO_COCO_JOINTS_MAP :31,
+convert_densepose_seg_to_14part_labels :40,
+convert_multiclass_to_binary_labels :56, the heatmaps :62-99,
+convert_heatmaps_to_2Djoints_coordinates :100): the
 heatmap is the outer product of two 1-D Gaussians (rows x columns), with
 the row/col convention the JAX package pins. The datasets build one item's
 heatmaps on the host, in numpy (convert_2Djoints_to_gaussian_heatmaps).
@@ -18,6 +21,37 @@ ALL_JOINTS_TO_COCO_MAP = [24, 26, 25, 28, 27, 16, 17, 18, 19, 20, 21, 1, 2,
 ALL_JOINTS_TO_H36M_MAP = list(range(73, 90))
 H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
 H36M_TO_J14 = H36M_TO_J17[:14]
+
+# 24-part seg class -> the COCO joint it carries.
+TWENTYFOUR_PART_SEG_TO_COCO_JOINTS_MAP = {19: 7, 21: 7, 20: 8, 22: 8, 4: 9,
+                                          3: 10, 12: 13, 14: 13, 11: 14,
+                                          13: 14, 5: 15, 6: 16}
+
+# DensePose 24-part -> 14-part lookup, index 0 = background.
+_DP24_TO_14 = np.array([0,
+                        1, 1, 11, 12, 14, 13, 8, 6, 8, 6, 9, 7,
+                        9, 7, 2, 4, 2, 4, 3, 5, 3, 5, 10, 10], dtype=np.int32)
+
+
+def convert_densepose_seg_to_14part_labels(densepose_seg):
+    """24 DensePose part labels -> 14 part labels, for numpy arrays or
+    tensors. A tensor's labels are truncated to integers first, as the JAX
+    package's astype does, and any outside 0-24 (the crop's -1 padding)
+    map to 0, as its sum of equality masks gives."""
+    if isinstance(densepose_seg, np.ndarray):
+        return _DP24_TO_14[densepose_seg.astype(np.int64)]
+    seg = densepose_seg.to(torch.int64)
+    lut = torch.as_tensor(_DP24_TO_14, device=seg.device)
+    inside = (seg >= 0) & (seg < len(_DP24_TO_14))
+    return torch.where(inside, lut[seg.clamp(0, len(_DP24_TO_14) - 1)],
+                       torch.zeros_like(lut[0]))
+
+
+def convert_multiclass_to_binary_labels(multiclass_labels):
+    """Multiclass segmentation -> binary int32 mask."""
+    if isinstance(multiclass_labels, np.ndarray):
+        return (multiclass_labels != 0).astype(np.int32)
+    return (multiclass_labels != 0).to(torch.int32)
 
 
 def convert_2Djoints_to_gaussian_heatmaps(joints2D, img_wh, std=4):

@@ -42,7 +42,7 @@ def test_cli_on_a_demo_photo(tmp_path):
     assert (fig[:, 2 * WH:] > 0).mean() > 0.01
 
 
-def test_cuda_is_never_replaced_by_the_cpu():
+def test_cuda_is_never_replaced_by_the_cpu(tmp_path):
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import main
     from hierarchicalprobabilistic3dhuman_torch.utils.device import resolve_device
     if torch.cuda.is_available():
@@ -51,29 +51,43 @@ def test_cuda_is_never_replaced_by_the_cpu():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--image_dir", REPO, "--save_dir", REPO, "--cropped_images"])
+    from hierarchicalprobabilistic3dhuman_torch.cli.train import main as train_main
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_main(["-E", str(tmp_path / "exp")])
+    assert not (tmp_path / "exp").exists()
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port (the evaluation slice's included), the two
-    entry scripts and chip_smoke.py, imported in a fresh interpreter, load
-    neither jax/flax nor the JAX package."""
+    """Every module of the port (the evaluation and training slices'
+    included), the three entry scripts and chip_smoke.py, imported in a
+    fresh interpreter, load neither jax/flax/optax nor the JAX package."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {REPO!r})
 import {PORT}
 names = [m.name for m in pkgutil.walk_packages({PORT}.__path__, "{PORT}.")]
-for name in names + ["run_predict_torch", "run_evaluate_torch", "chip_smoke"]:
+for name in names + ["run_predict_torch", "run_evaluate_torch",
+                     "run_train_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "jaxlib", "flax", "hierarchicalprobabilistic3dhuman_tpu")]
+       ("jax", "jaxlib", "flax", "optax", "hierarchicalprobabilistic3dhuman_tpu")]
 print(len(names), bad)
 evaluation = ["cli.evaluate", "evaluate.evaluate_pose_mf_shape_gaussian_net",
               "metrics.metric_sums", "metrics.eval_metrics_tracker",
               "ops.lapack_svd3", "utils.eval_utils", "data.loader",
               "data.crop_utils_np", "data.ssp3d_eval_dataset",
               "data.pw3d_eval_dataset"]
-missing = [m for m in evaluation if "{PORT}." + m not in names]
-assert len(names) >= 35 and not missing and not bad, (missing, bad)
+training = ["cli.train", "train.train_pose_mf_shape_gaussian_net",
+            "losses.matrix_fisher_loss", "ops.matrix_fisher",
+            "utils.augmentation.smpl_augmentation",
+            "utils.augmentation.cam_augmentation",
+            "utils.augmentation.lighting_augmentation",
+            "utils.augmentation.proxy_rep_augmentation",
+            "utils.augmentation.rgb_augmentation", "utils.random_draws",
+            "metrics.train_loss_and_metrics_tracker", "runtime.checkpointing",
+            "data.on_the_fly_smpl_train_dataset"]
+missing = [m for m in evaluation + training if "{PORT}." + m not in names]
+assert len(names) >= 50 and not missing and not bad, (missing, bad)
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=REPO)

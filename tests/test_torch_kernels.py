@@ -254,3 +254,28 @@ def test_gesdd_svd_on_card_equals_cpu(cuda_device):
     cpu = svd3x3_gesdd(F)
     for a, b in zip(card, cpu):
         assert torch.equal(a, b)
+
+
+def test_train_tables_come_from_the_training_render():
+    """The training shape's tables are the synthetic stage's own render:
+    perspective, A = 12 (IUV, normal, camera position, texel colour), on
+    the CPU at a small size."""
+    scene = chip_smoke.train_scene("cpu", batch=2, img_wh=32)
+    assert scene.vert_attrs.shape == (2, 7829, 12)
+    assert scene.tables.image_hw == (32, 32)
+    # z is the camera-frame depth, not shifted (perspective)
+    assert 1.5 < float(scene.screen[..., 2].min()) < 3.5
+
+
+@pytest.mark.cuda
+def test_train_step_card_matches_cpu(cuda_device):
+    """One stage-2 train step at B=4, 64^2 on the card against the CPU, as
+    chip_smoke.py phase 7c holds it: loss and terms within 1e-4 relative,
+    BatchNorm buffers within 1e-5 of each tensor's largest, every gradient
+    finite and within max(1e-3, 10 x its float32 noise floor) of the
+    tensor's largest, the synthetic proxy equal on >= 0.99 of its values."""
+    from hierarchicalprobabilistic3dhuman_torch.utils.device import set_full_f32
+    set_full_f32(cuda_device)
+    chip_smoke.check_card_vs_cpu_step(
+        "cuda test", chip_smoke.train_card_vs_cpu(cuda_device,
+                                                  **chip_smoke.TRAIN_CHECK))
