@@ -75,7 +75,24 @@ Phases (any failure exits non-zero before the final line):
      synthetic batch against the CPU's; (d) train img/s per stage at B=72,
      the step split into synth / forward / backward / Adam, launches and
      the busy share from a profile, the upload of a loader batch, and the
-     kernels at the path's tables beside their bounds and plain versions.
+     kernels at the path's tables beside their bounds and plain versions;
+  8. the ResNet-50 predictor (MODEL.NUM_RESNET_LAYERS 50, full width) and
+     the JAX package's checkpoint layouts: (a) `run_train_torch.py -O
+     MODEL.NUM_RESNET_LAYERS 50 LOSS.STAGE_CHANGE_EPOCH 1 --num_epochs 2`
+     at B=72 (12 launches of each kernel), its experiment checked as in
+     7b, and both kernels held to their plain versions on the tables of
+     the run's last render; (b) its epoch 1 written in the JAX package's
+     layout (a pickle with optax's state, by the port's writer) into a
+     second experiment, `-R 1` there (6 launches), and one step resumed
+     from that file against one resumed from the reference-layout file
+     (loss and weights within 1e-6 relative); (c) `run_predict_torch.py`
+     on 3 demo photos and `run_evaluate_torch.py --dataset ssp3d
+     --batch_size 8` on phase 6's folder, each with the same ResNet-50
+     weights as a reference .tar and as flax variables written by the
+     port's save_variables (outputs, metrics and per-frame files within
+     1e-6); (d) train img/s per stage at B=72 with the split, launches and
+     busy share as in 7d, SSP-3D frames/s at batch 8, the load time of
+     each checkpoint format, and K1 on 8a's tables beside its bound.
      Each phase logs its wall time.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
@@ -183,6 +200,22 @@ def median_ms(fn, repeats=5, inner=1):
     return statistics.median(times)
 
 
+def figure_renderer(device, img_wh):
+    """The renderer of the predict figures: orthographic, shaded colours."""
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    return TexturedIUVRenderer(device, img_wh=img_wh,
+                               projection_type="orthographic", render_rgb=True)
+
+
+def silhouette_renderer(device, img_wh):
+    """The renderer of the evaluation's silhouettes: orthographic, IUV."""
+    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
+        TexturedIUVRenderer)
+    return TexturedIUVRenderer(device, img_wh=img_wh,
+                               projection_type="orthographic", render_rgb=False)
+
+
 def render_scene(renderer, views):
     """The Scene one renderer call packs for the meshes of `views` (the
     renderer arguments six_views and samples_views build)."""
@@ -203,8 +236,6 @@ def predict_scene(device, img_wh=512, seed=0, batch=1):
     from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         X_AXIS, ZERO_T, jet_colormap, six_views)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
     from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
         aa_rotate_translate_points)
 
@@ -222,7 +253,7 @@ def predict_scene(device, img_wh=512, seed=0, batch=1):
                                    np.pi, ZERO_T),
         jet_colormap(tensor(rng.rand(batch, 6890) * 0.2)),
         tensor([[0.0, -0.1, 2.5]] * batch), tensor([[0.9, 0.9]] * batch))
-    return render_scene(TexturedIUVRenderer(device, img_wh=img_wh), views)
+    return render_scene(figure_renderer(device, img_wh), views)
 
 
 def samples_scene(device, img_wh=512, seed=6):
@@ -236,8 +267,6 @@ def samples_scene(device, img_wh=512, seed=6):
     from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         X_AXIS, Y_AXIS, ZERO_T, samples_views)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
     from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
         aa_rotate_translate_points)
 
@@ -255,7 +284,7 @@ def samples_scene(device, img_wh=512, seed=6):
     proxy = torch.zeros((1, 18, 256, 256), device=device)
     proxy[0, 1 + np.arange(17), rng.randint(40, 216, 17),
           rng.randint(40, 216, 17)] = 1.0
-    return render_scene(TexturedIUVRenderer(device, img_wh=img_wh), samples_views(
+    return render_scene(figure_renderer(device, img_wh), samples_views(
         out["vertices"][None, 1:], out["joints"][None, 1:], proxy,
         tensor([[0.9, 0.02, -0.05]]), verts_mode,
         aa_rotate_translate_points(verts_mode, Y_AXIS, -np.pi / 2, ZERO_T),
@@ -284,8 +313,6 @@ def silhouette_scene(device, batch=8, img_wh=256, seed=7):
     :return: Scene with screen (batch, 7829, 3)
     """
     from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
     from hierarchicalprobabilistic3dhuman_torch.utils.rotation_utils import (
         aa_rotate_translate_points)
 
@@ -298,7 +325,7 @@ def silhouette_scene(device, batch=8, img_wh=256, seed=7):
                                    body_pose=tensor(rng.randn(batch, 69) * 0.3),
                                    global_orient=tensor(rng.randn(batch, 3) * 0.2)
                                    )["vertices"]
-    renderer = TexturedIUVRenderer(device, img_wh=img_wh, render_rgb=False)
+    renderer = silhouette_renderer(device, img_wh)
     screen, iuv = renderer.raster_inputs(
         aa_rotate_translate_points(verts, (1.0, 0.0, 0.0), np.pi, (0.0, 0.0, 0.0)),
         tensor(np.c_[rng.randn(batch, 2) * 0.05, np.full(batch, 2.5)]),
@@ -335,7 +362,8 @@ def train_parts(device, cfg, seed=0):
     init_weights(model, torch.Generator().manual_seed(seed))
     renderer = TexturedIUVRenderer(
         device, img_wh=cfg.DATA.PROXY_REP_SIZE, projection_type="perspective",
-        perspective_focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH)
+        perspective_focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH,
+        render_rgb=True)
     edge = CannyEdgeDetector(device, non_max_suppression=cfg.DATA.EDGE_NMS,
                              gaussian_filter_std=cfg.DATA.EDGE_GAUSSIAN_STD,
                              gaussian_filter_size=cfg.DATA.EDGE_GAUSSIAN_SIZE,
@@ -354,21 +382,25 @@ def train_batch(batch, img_wh, seed):
     return next(iter(DataLoader(dataset, batch_size=batch, num_workers=0)))
 
 
-class TableRecorder:
-    """The training renderer, keeping the Scene (packed tables) of its last
-    call."""
+class CallRecorder:
+    """The training renderer, keeping the arguments of its last call (no
+    launch of its own, so a path's kernel counts stay the path's)."""
 
     def __init__(self, renderer):
         self.renderer = renderer
         self.faces = renderer.faces
 
-    def __call__(self, vertices, cam_t, lights_rgb_settings, textures):
+    def __call__(self, vertices, cam_t=None, textures=None, **kwargs):
+        self.last = (vertices.detach(), cam_t.detach(), textures.detach())
+        return self.renderer(vertices, cam_t=cam_t, textures=textures, **kwargs)
+
+    def scene(self):
+        """The Scene (packed tables) of the last call."""
+        vertices, cam_t, textures = self.last
         screen, vert_attrs = self.renderer.raster_inputs(vertices, cam_t,
                                                          textures=textures)
         wh = self.renderer.img_wh
-        self.scene = make_scene(screen, self.faces, vert_attrs, (wh, wh))
-        return self.renderer(vertices, cam_t=cam_t, textures=textures,
-                             lights_rgb_settings=lights_rgb_settings)
+        return make_scene(screen, self.faces, vert_attrs, (wh, wh))
 
 
 def train_scene(device, batch=72, img_wh=256, seed=2):
@@ -385,12 +417,12 @@ def train_scene(device, batch=72, img_wh=256, seed=2):
     device = torch.device(device)
     cfg = train_cfg(img_wh)
     _, smpl, renderer, edge = train_parts(device, cfg)
-    recorder = TableRecorder(renderer)
+    recorder = CallRecorder(renderer)
     synth = make_synth_data_fn(cfg, smpl, recorder, edge)
     with torch.no_grad():
         synth(Draws(torch.Generator(device=device).manual_seed(seed)),
               *batch_to_device(train_batch(batch, img_wh, seed), device))
-    return recorder.scene
+    return recorder.scene()
 
 
 def triangle_scene(device):
@@ -766,8 +798,6 @@ def phase_core_cuda_vs_cpu():
         rasterize_packed_cuda, rasterize_packed_plain)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         make_predict_core)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
 
     cfg = get_pose_shape_cfg_defaults()
     hrnet_cfg = get_pose2d_hrnet_cfg_defaults()
@@ -784,7 +814,7 @@ def phase_core_cuda_vs_cpu():
         outs, tables = {}, {}
         for dev in ("cuda", "cpu"):
             smpl = SMPL.synthetic(dev)
-            renderer = TexturedIUVRenderer(dev, img_wh=hw[0])
+            renderer = figure_renderer(dev, hw[0])
             core = make_predict_core(
                 model.to(dev).eval(), cfg, smpl,
                 CannyEdgeDetector(dev, threshold=0.0), renderer, hrnet_cfg)
@@ -1001,8 +1031,6 @@ def phase_timing(argv, scenes):
         make_hrnet_predictor)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         make_predict_core, predict_pose_mf_shape_gaussian_net)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
     import cv2
 
     # Per-image predict, the whole loop (host clock ending in a sync),
@@ -1030,7 +1058,7 @@ def phase_timing(argv, scenes):
     core = make_predict_core(
         kwargs["pose_shape_model"], kwargs["pose_shape_cfg"],
         kwargs["smpl_model"], kwargs["edge_detect_model"],
-        TexturedIUVRenderer(device, img_wh=512), kwargs["hrnet_cfg"])
+        figure_renderer(device, 512), kwargs["hrnet_cfg"])
     generator = torch.Generator(device=device).manual_seed(0)
     core_ms = median_ms(lambda: core(kp["cropped_image"][None],
                                      kp["joints2D"][None],
@@ -1113,8 +1141,6 @@ def figure_scenes(kwargs, image_dir):
     import cv2
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         make_predict_core, samples_views)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
 
     device = kwargs["device"]
     by_shape = {}
@@ -1125,7 +1151,7 @@ def figure_scenes(kwargs, image_dir):
     chunk = next(g for g in by_shape.values() if len(g) >= BATCH)[:BATCH]
     stack = torch.as_tensor(np.stack(chunk), device=device)
     hr = hrnet_predict(kwargs, stack)
-    renderer = TexturedIUVRenderer(device, img_wh=FIGURE_WH)
+    renderer = figure_renderer(device, FIGURE_WH)
     core = make_predict_core(
         kwargs["pose_shape_model"], kwargs["pose_shape_cfg"],
         kwargs["smpl_model"], kwargs["edge_detect_model"], renderer,
@@ -1278,8 +1304,6 @@ def phase_batched(workdir):
         IMAGENET_MEAN, IMAGENET_STD)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         make_predict_core, predict_pose_mf_shape_gaussian_net)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
     from hierarchicalprobabilistic3dhuman_torch.utils.precision import bf16_apply
     import cv2
 
@@ -1424,7 +1448,7 @@ def phase_batched(workdir):
     cores["figures"] = make_predict_core(
         kwargs["pose_shape_model"], kwargs["pose_shape_cfg"],
         kwargs["smpl_model"], kwargs["edge_detect_model"],
-        TexturedIUVRenderer(device, img_wh=FIGURE_WH), kwargs["hrnet_cfg"])
+        figure_renderer(device, FIGURE_WH), kwargs["hrnet_cfg"])
     generator = torch.Generator(device=device).manual_seed(0)
     for name, core in cores.items():
         def call(core=core):
@@ -1565,13 +1589,9 @@ def make_step(kwargs, renderer=None):
         make_eval_step)
     from hierarchicalprobabilistic3dhuman_torch.metrics.metric_sums import (
         make_eval_frame_metrics_fn)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
     cfg = kwargs["pose_shape_cfg"]
     if renderer is None:
-        renderer = TexturedIUVRenderer(kwargs["device"],
-                                       img_wh=cfg.DATA.PROXY_REP_SIZE,
-                                       render_rgb=False)
+        renderer = silhouette_renderer(kwargs["device"], cfg.DATA.PROXY_REP_SIZE)
     return make_eval_step(
         kwargs["pose_shape_model"], kwargs["smpl_neutral"], kwargs["smpl_male"],
         kwargs["smpl_female"], kwargs["edge_detect_model"], cfg, EVAL_SAMPLES,
@@ -1613,8 +1633,6 @@ def phase_eval(workdir, device):
     from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import svd3x3_gesdd
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
         face_boxes_plain, face_vertices, rasterize_packed_plain)
-    from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-        TexturedIUVRenderer)
 
     readings = {"launches": {}}
     lap_start = [time.perf_counter()]
@@ -1642,7 +1660,7 @@ def phase_eval(workdir, device):
         raise AssertionError("--svd_impl auto did not take lapack for a .tar")
     batch_args = eval_batch(card)
     wh = card["pose_shape_cfg"].DATA.PROXY_REP_SIZE
-    silhouettes = TexturedIUVRenderer(device, img_wh=wh, render_rgb=False)
+    silhouettes = silhouette_renderer(device, wh)
     recorder = RecordingRenderer(silhouettes)
     make_step(card, renderer=recorder)(*batch_args(device))
     scenes = {}
@@ -2040,18 +2058,20 @@ def check_card_vs_cpu_step(tag, r):
 def check_experiment(tag, exp, epochs):
     """log.pkl holds `epochs` epochs of finite losses and metrics, and
     epoch_000.tar is the reference's dict, which the predict/eval loader
-    loads strict=True into a fresh predictor."""
+    loads strict=True into a fresh predictor of the experiment's config."""
     import pickle
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
         build_pose_shape_model)
     from hierarchicalprobabilistic3dhuman_torch.models.weights import (
-        load_checkpoint, load_predictor_state_dict)
+        load_predictor_state_dict)
+    from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
+        load_checkpoint)
     with open(os.path.join(exp, "log.pkl"), "rb") as f:
         history = pickle.load(f)
     path = os.path.join(exp, "saved_models", "epoch_000.tar")
     keys = set(load_checkpoint(path))
-    build_pose_shape_model(train_cfg(), "jacobi").load_state_dict(
-        load_predictor_state_dict(path), strict=True)
+    model = build_pose_shape_model(experiment_cfg(exp), "jacobi")
+    model.load_state_dict(load_predictor_state_dict(path, model), strict=True)
     lengths = {len(v) for v in history.values()}
     finite = all(np.isfinite(v).all() for v in history.values())
     log(f"[{tag}] log.pkl: {lengths} epochs, all finite {finite}; train "
@@ -2062,9 +2082,10 @@ def check_experiment(tag, exp, epochs):
         raise AssertionError(f"[{tag}] bad training outputs in {exp}")
 
 
-def time_train_steps(device):
-    """Full-width steps (B = 72, 256^2, ResNet-18, EMBED_DIM 256, 8 samples)
-    on one uploaded batch: per stage, img/s from the host clock ending in a
+def time_train_steps(device, cfg=None, tag="phase 7d"):
+    """Full-width steps (by default B = 72, 256^2, ResNet-18, EMBED_DIM 256,
+    8 samples: `cfg` may give another depth) on one uploaded batch: per
+    stage, img/s from the host clock ending in a
     synchronize (median of 5 steps after one warm-up, each step's loss read
     as the loop reads it), the step split into synth / forward / backward /
     Adam with CUDA events (medians of 5), and a profile of one step; then
@@ -2072,7 +2093,7 @@ def time_train_steps(device):
     from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
         TrainStep, batch_to_device)
     from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
-    cfg = train_cfg()
+    cfg = cfg or train_cfg()
     B = cfg.TRAIN.BATCH_SIZE
     model, smpl, renderer, edge = train_parts(device, cfg)
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.TRAIN.LR,
@@ -2120,7 +2141,8 @@ def time_train_steps(device):
         out[f"stage{stage}"] = {"step_ms": step_ms, "img_s": B / step_ms * 1e3,
                                 "split_ms": split, "launches": prof["launches"],
                                 "busy": prof["device_ms"] / prof["wall_ms"]}
-        log(f"[phase 7d] stage {stage} train step, B={B} 256^2: median "
+        log(f"[{tag}] stage {stage} train step, ResNet-"
+            f"{cfg.MODEL.NUM_RESNET_LAYERS}, B={B} 256^2: median "
             f"{step_ms:.2f} ms ({B / step_ms * 1e3:.2f} img/s; steps "
             f"{[round(t, 2) for t in walls]}); split (CUDA events) "
             f"{ {k: round(v, 3) for k, v in split.items()} } ms; profile: "
@@ -2129,7 +2151,7 @@ def time_train_steps(device):
             f"({prof['device_ms'] / prof['wall_ms']:.1%}); gradients finite "
             f"{finite}")
         for e in sorted(prof["rows"], key=lambda e: -e.self_device_time_total)[:5]:
-            log(f"[phase 7d]   {e.self_device_time_total / 1e3:8.3f} ms "
+            log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
                 f"x{e.count:<5d} {e.key[:90]}")
         if not finite:
             raise AssertionError(f"stage {stage}: non-finite gradients at "
@@ -2145,7 +2167,7 @@ def time_train_steps(device):
         uploads.append((time.perf_counter() - t0) * 1e3)
     upload_ms = statistics.median(uploads[1:])
     out["upload_ms"], out["upload_bytes"] = upload_ms, nbytes
-    log(f"[phase 7d] upload of a loader batch ({nbytes} bytes, pinned then "
+    log(f"[{tag}] upload of a loader batch ({nbytes} bytes, pinned then "
         f"copied): median {upload_ms:.2f} ms ({nbytes / upload_ms / 1e6:.2f} "
         f"GB/s), {upload_ms / out['stage1']['step_ms']:.1%} of a stage-1 step")
     return out
@@ -2200,6 +2222,308 @@ def phase_train(workdir, device):
     return readings
 
 
+RESNET50_OPTS = ["MODEL.NUM_RESNET_LAYERS", "50", "LOSS.STAGE_CHANGE_EPOCH", "1",
+                 "TRAIN.EPOCHS_PER_SAVE", "1"]
+RESUME_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def recording_renderers():
+    """The training CLI's renderers wrapped in CallRecorders, made ones
+    listed."""
+    from hierarchicalprobabilistic3dhuman_torch.renderers import textured_iuv_renderer
+    made, cls = [], textured_iuv_renderer.TexturedIUVRenderer
+
+    def make(*args, **kwargs):
+        made.append(CallRecorder(cls(*args, **kwargs)))
+        return made[-1]
+
+    textured_iuv_renderer.TexturedIUVRenderer = make
+    try:
+        yield made
+    finally:
+        textured_iuv_renderer.TexturedIUVRenderer = cls
+
+
+def experiment_cfg(exp):
+    from hierarchicalprobabilistic3dhuman_torch.configs import (
+        get_pose_shape_cfg_defaults)
+    cfg = get_pose_shape_cfg_defaults()
+    cfg.merge_from_file(os.path.join(exp, "pose_shape_cfg.yaml"))
+    return cfg
+
+
+def write_jax_layout_experiment(exp, jax_exp, epoch):
+    """A copy of experiment `exp` with its epoch `epoch` in the JAX
+    package's layout, written by the port's writer (config, precision and
+    log copied as they are)."""
+    from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
+        build_pose_shape_model)
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import to_jax_layout
+    from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
+        checkpoint_path, load_training_checkpoint, save_jax_training_checkpoint)
+    os.makedirs(os.path.join(jax_exp, "saved_models"))
+    for name in ("pose_shape_cfg.yaml", "encoder_precision.txt", "log.pkl"):
+        shutil.copy(os.path.join(exp, name), jax_exp)
+    model = build_pose_shape_model(experiment_cfg(exp), "jacobi")
+    path = checkpoint_path(os.path.join(jax_exp, "saved_models"), epoch)
+    save_jax_training_checkpoint(path, **to_jax_layout(load_training_checkpoint(
+        checkpoint_path(os.path.join(exp, "saved_models"), epoch)), model))
+    return path
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms (and cuDNN's) while the block runs;
+    an operation that has none warns, and the warnings are logged. cuBLAS's
+    workspace is left as it is (CUBLAS_WORKSPACE_CONFIG is read once, at the
+    first cuBLAS call of the process)."""
+    import warnings
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        for w in {str(w.message).splitlines()[0] for w in caught}:
+            log(f"[deterministic] {w}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        cudnn.deterministic, cudnn.benchmark = flags
+
+
+def resumed(cfg, path, device):
+    """A model and Adam resumed from a training checkpoint as
+    run_train_torch.py -R resumes them, and their state: every tensor of
+    the model (BatchNorm's batch counter aside: flax keeps none) and of
+    Adam, by name."""
+    from hierarchicalprobabilistic3dhuman_torch.cli.train import (
+        build_model_and_optimizer)
+    from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
+        load_training_checkpoint)
+    model, optimizer, _ = build_model_and_optimizer(
+        cfg, device, checkpoint=load_training_checkpoint(path))
+    state = {k: v.clone() for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    for i, p in enumerate(model.parameters()):
+        state.update({f"adam.{i}.{k}": v.clone()
+                      for k, v in optimizer.state[p].items()})
+    return model, optimizer, state
+
+
+def resumed_step(cfg, model, optimizer, device, host_batch):
+    """One stage-2 train step on `host_batch` with draws from seed 0.
+
+    :return: the step's loss, the parameters after it (on the CPU)
+    """
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        TrainStep, batch_to_device)
+    from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
+    _, smpl, renderer, edge = train_parts(device, cfg)
+    step = TrainStep(model, cfg, smpl, renderer, edge, cfg.LOSS.STAGE2, optimizer,
+                     train=True, metrics_to_track=TRAIN_METRICS + ["joints2Dsamples-L2E"])
+    with deterministic_algorithms():
+        loss, _, _ = step(Draws(torch.Generator(device=device).manual_seed(0)),
+                          *batch_to_device(host_batch, device))
+        loss = float(loss)
+    return loss, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def compare_resumes(tag, cfg, jax_ckpt, ref_ckpt, device, host_batch):
+    """The states resumed from the JAX-layout and the reference-layout
+    files of one epoch (equal, tensor for tensor), and one step from each:
+    the loss relative to the loss and the parameters relative to each
+    tensor's largest entry, within RESUME_RTOL."""
+    runs = []
+    for path in (jax_ckpt, ref_ckpt):
+        model, optimizer, state = resumed(cfg, path, device)
+        runs.append((state, resumed_step(cfg, model, optimizer, device, host_batch)))
+        del model, optimizer
+    (state_a, (loss_a, params_a)), (state_b, (loss_b, params_b)) = runs
+    same = sorted(state_a) == sorted(state_b) and all(
+        torch.equal(state_a[k], state_b[k]) for k in state_b)
+    loss_err = abs(loss_a - loss_b) / abs(loss_b)
+    worst = max(float((params_a[n] - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                for n, w in params_b.items())
+    log(f"[{tag}] resumed from the JAX layout vs the reference layout: "
+        f"{len(state_b)} tensors of the model and Adam equal {same}; one "
+        f"step (deterministic algorithms): loss {loss_a:.7g} vs {loss_b:.7g} "
+        f"({loss_err:.2e} rel), weights after it max diff {worst:.2e} of each "
+        f"tensor's largest (tol {RESUME_RTOL:g})")
+    if not (same and loss_err <= RESUME_RTOL and worst <= RESUME_RTOL):
+        raise AssertionError(f"[{tag}] the JAX-layout resume differs")
+    return max(loss_err, worst)
+
+
+def resnet50_weights(workdir, seed=0):
+    """The ResNet-50 predictor at full width (random weights from `seed`)
+    saved twice: as a reference checkpoint and as flax variables by the
+    port's save_variables; and its --pose_shape_cfg.
+
+    :return: cfg path, {"tar": path, "msgpack": path}
+    """
+    from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
+        PoseMFShapeGaussianNet)
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import (
+        init_weights, torch_to_flax_predictor)
+    from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
+        save_variables)
+    sd = init_weights(PoseMFShapeGaussianNet(num_resnet_layers=50),
+                      torch.Generator().manual_seed(seed)).state_dict()
+    paths = {"tar": os.path.join(workdir, "resnet50.tar"),
+             "msgpack": os.path.join(workdir, "resnet50.msgpack")}
+    torch.save({"best_model_state_dict": sd, "epoch": np.int64(0)}, paths["tar"])
+    save_variables(paths["msgpack"], torch_to_flax_predictor(sd))
+    cfg = os.path.join(workdir, "resnet50.yaml")
+    with open(cfg, "w") as f:
+        f.write("MODEL:\n  NUM_RESNET_LAYERS: 50\n")
+    return cfg, paths
+
+
+def host_ms(fn, repeats=3):
+    """Median host-clock ms of fn() over `repeats` calls."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_resnet50(workdir, device):
+    """Phase 8: the ResNet-50 predictor through the three entry points, and
+    the JAX package's checkpoint layouts (see the module docstring).
+
+    :return: dict of the readings for the kernels line
+    """
+    from hierarchicalprobabilistic3dhuman_torch.cli.evaluate import (
+        build_evaluator, build_parser as eval_parser, main as eval_main)
+    from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
+        build_pose_shape_model, main as predict_main)
+    from hierarchicalprobabilistic3dhuman_torch.cli.train import main as train_main
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import (
+        load_predictor_state_dict, to_reference_layout)
+    from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
+        checkpoint_path, load_training_checkpoint)
+    t0 = time.perf_counter()
+    readings = {"launches": {}}
+
+    def lap(tag):
+        nonlocal t0
+        log(f"[{tag}] took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    # (a) two epochs at B = 72, then K1 held to its plain version on the
+    # tables of the run's last render.
+    exp = os.path.join(workdir, "train_resnet50")
+    steps = 2 * TRAIN_STEPS_A_EPOCH
+    with recording_renderers() as made:
+        _, readings["launches"]["train_resnet50_2_epochs"] = run_path(
+            "phase 8a", "run_train_torch.py -O MODEL.NUM_RESNET_LAYERS 50 "
+            "LOSS.STAGE_CHANGE_EPOCH 1 --num_epochs 2 (B=72, 256^2)",
+            lambda: train_main(["-E", exp, "-O", *RESNET50_OPTS,
+                                "--num_epochs", "2"]), expect=steps)
+    check_experiment("phase 8a", exp, epochs=2)
+    (recorder,) = made
+    scene = recorder.scene()
+    covered, readings["attr_err"], readings["box_err"], _ = hold_to_plain(
+        "phase 8a", "train_resnet50", scene)
+    lap("phase 8a")
+
+    # (b) epoch 1 in the JAX package's layout, resumed by the CLI, and its
+    # first step against the reference-layout resume.
+    jax_exp = os.path.join(workdir, "train_resnet50_jax_layout")
+    jax_ckpt = write_jax_layout_experiment(exp, jax_exp, 1)
+    _, readings["launches"]["train_resnet50_resume_jax_layout"] = run_path(
+        "phase 8b", "run_train_torch.py -R 1 --num_epochs 3 from the JAX layout",
+        lambda: train_main(["-E", jax_exp, "-R", "1", "--num_epochs", "3"]),
+        expect=TRAIN_STEPS_A_EPOCH)
+    cfg = experiment_cfg(exp)
+    host_batch = train_batch(cfg.TRAIN.BATCH_SIZE, cfg.DATA.PROXY_REP_SIZE, seed=4)
+    ref_ckpt = checkpoint_path(os.path.join(exp, "saved_models"), 1)
+    readings["resume_err"] = compare_resumes("phase 8b", cfg, jax_ckpt, ref_ckpt,
+                                             device, host_batch)
+    lap("phase 8b")
+
+    # (c) predict and evaluate with the same weights in both formats.
+    cfg_path, weights = resnet50_weights(workdir)
+    image_dir = os.path.join(workdir, "demo3")
+    ssp3d = os.path.join(workdir, "ssp3d")
+    outputs = {}
+    for fmt, path in weights.items():
+        save = os.path.join(workdir, f"predict_resnet50_{fmt}")
+        results, readings["launches"][f"predict_resnet50_{fmt}"] = run_path(
+            "phase 8c", f"run_predict_torch.py, ResNet-50 weights as {fmt}, on "
+            f"{len(DEMO_PHOTOS)} demo photos",
+            lambda: predict_main(["--image_dir", image_dir, "--save_dir", save,
+                                  "--cropped_images", "--pose_shape_cfg", cfg_path,
+                                  "--pose_shape_weights", path, "--svd_impl",
+                                  "jacobi", "--device", "cuda"]),
+            expect=len(DEMO_PHOTOS))
+        check_results("phase 8c", results, DEMO_PHOTOS)
+        eval_save = os.path.join(workdir, f"eval_resnet50_{fmt}")
+        metrics, readings["launches"][f"eval_resnet50_{fmt}"] = run_path(
+            "phase 8c", f"run_evaluate_torch.py --dataset ssp3d --batch_size 8, "
+            f"ResNet-50 weights as {fmt}",
+            lambda: eval_main(eval_argv("ssp3d", ssp3d, path, eval_save, EVAL_BATCH,
+                                        "cuda", "--pose_shape_cfg", cfg_path,
+                                        "--svd_impl", "jacobi")),
+            expect=2 * len(eval_photos()) // EVAL_BATCH)
+        check_eval_outputs("phase 8c", metrics, SSP3D_METRICS, eval_save,
+                           len(eval_photos()))
+        outputs[fmt] = (results, metrics, {f: np.load(os.path.join(
+            eval_save, f + ".npy")) for f in FRAME_FILES[1:]})
+    diffs = [float(np.abs(outputs["msgpack"][0][f][k] - outputs["tar"][0][f][k]).max())
+             for f in DEMO_PHOTOS for k in outputs["tar"][0][f]]
+    diffs += [abs(outputs["msgpack"][1][k] - outputs["tar"][1][k])
+              for k in outputs["tar"][1]]
+    diffs += [float(np.abs(outputs["msgpack"][2][k] - outputs["tar"][2][k]).max())
+              for k in outputs["tar"][2]]
+    readings["format_diff"] = max(diffs)
+    log(f"[phase 8c] flax msgpack vs reference .tar: predict outputs, eval "
+        f"metrics and per-frame files max diff {max(diffs):.3e} (tol 1e-6)")
+    if not max(diffs) <= 1e-6:
+        raise AssertionError("[phase 8c] the two weight formats disagree")
+    lap("phase 8c")
+
+    # (d) timings.
+    log(f"[phase 8d] on {card_line()}")
+    readings["steps"] = time_train_steps(device, experiment_cfg(exp), "phase 8d")
+    with contextlib.redirect_stdout(io.StringIO()):
+        kwargs = build_evaluator(eval_parser().parse_args(eval_argv(
+            "ssp3d", ssp3d, weights["msgpack"], os.path.join(workdir, "eval_t50"),
+            EVAL_BATCH, "cuda", "--pose_shape_cfg", cfg_path)))
+    readings["eval_fps"], rates = timed_eval_runs(kwargs, EVAL_BATCH)
+    log(f"[phase 8d] SSP-3D eval at batch {EVAL_BATCH}, ResNet-50 from flax "
+        f"variables (--svd_impl auto: {kwargs['pose_shape_model'].svd_impl}): "
+        f"median {readings['eval_fps']:.2f} frames/s (runs "
+        f"{[round(r, 2) for r in rates]})")
+    predictor = build_pose_shape_model(kwargs["pose_shape_cfg"], "jacobi")
+    model = build_pose_shape_model(cfg, "jacobi")
+    optimizer = torch.optim.Adam(model.parameters())
+    loads = {
+        "predictor_tar": lambda: load_predictor_state_dict(weights["tar"], predictor),
+        "predictor_msgpack": lambda: load_predictor_state_dict(weights["msgpack"],
+                                                               predictor),
+        "training_reference_layout": lambda: load_training_checkpoint(ref_ckpt),
+        "training_jax_layout": lambda: to_reference_layout(
+            load_training_checkpoint(jax_ckpt), model, optimizer),
+    }
+    readings["load_ms"] = {name: host_ms(fn) for name, fn in loads.items()}
+    sizes = {name: os.path.getsize(path) for name, path in (
+        ("predictor_tar", weights["tar"]), ("predictor_msgpack", weights["msgpack"]),
+        ("training_reference_layout", ref_ckpt), ("training_jax_layout", jax_ckpt))}
+    for name, ms in readings["load_ms"].items():
+        log(f"[phase 8d] load {name} ({sizes[name]} bytes): median {ms:.1f} ms "
+            f"of 3 (host clock, to state dicts on the CPU)")
+    readings["kernel"] = time_rasterizer("phase 8d", "train_resnet50", scene, covered)
+    del kwargs
+    lap("phase 8d")
+    return readings
+
+
 def time_face_boxes_plain(scene):
     """face_boxes' plain version on a scene's faces, median of 5 x 20."""
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
@@ -2238,6 +2562,7 @@ def main():
         batched = phase_batched(workdir)
         evaluation = timed_phase("phase 6", phase_eval, workdir, device)
         training = timed_phase("phase 7", phase_train, workdir, device)
+        resnet50 = timed_phase("phase 8", phase_resnet50, workdir, device)
 
     boxes = timing["face_boxes"]
     path_launches = {"per_image_3_photos": launches,
@@ -2245,7 +2570,8 @@ def main():
                         counts for path, counts in batched["launches"].items()},
                      **evaluation["launches"],
                      "train_2_epochs": training["launches"],
-                     "train_resume_1_epoch": training["resume_launches"]}
+                     "train_resume_1_epoch": training["resume_launches"],
+                     **resnet50["launches"]}
     kernels = [{
         "name": "rasterize",
         "route": "cuda",
@@ -2253,7 +2579,7 @@ def main():
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:240",
         "launches": launches["rasterize"],
         "max_abs_err": max(attr_err, batched["attr_err"], evaluation["attr_err"],
-                           training["attr_err"]),
+                           training["attr_err"], resnet50["attr_err"]),
         "ms": timing["predict"]["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["predict"]["bound_ms"],
@@ -2265,6 +2591,9 @@ def main():
         "bound_ms_train": training["kernel"]["bound_ms"],
         "bound_by_train": training["kernel"]["bound_by"],
         "plain_ms_train": training["plain_ms"],
+        "ms_train_resnet50": resnet50["kernel"]["kernel_ms"],
+        "bound_ms_train_resnet50": resnet50["kernel"]["bound_ms"],
+        "bound_by_train_resnet50": resnet50["kernel"]["bound_by"],
         "ms_batched": batched["kernels"]["batched"]["kernel_ms"],
         "bound_ms_batched": batched["kernels"]["batched"]["bound_ms"],
         "bound_by_batched": batched["kernels"]["batched"]["bound_by"],
@@ -2286,7 +2615,7 @@ def main():
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:97",
         "launches": launches["face_boxes"],
         "max_abs_err": max(box_err, batched["box_err"], evaluation["box_err"],
-                           training["box_err"]),
+                           training["box_err"], resnet50["box_err"]),
         "ms": boxes["predict"]["kernel_ms"],
         "plain_ms": boxes["plain_ms"],
         "bound_ms": boxes["predict"]["bound_ms"],
@@ -2309,7 +2638,7 @@ def main():
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
     for tag, readings in (("phase 5", batched), ("phase 6", evaluation),
-                          ("phase 7", training)):
+                          ("phase 7", training), ("phase 8", resnet50)):
         log(f"[{tag}] readings " + json.dumps(
             {k: v for k, v in readings.items()
              if k not in ("kernels", "face_boxes", "launches", "kernel")}))

@@ -6,14 +6,16 @@ python run_evaluate_torch.py --dataset 3dpw --dataset_path datasets/3DPW/test -N
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/cli/evaluate.py
 (run_evaluate :13, build_parser :148): the dataset and metric selection of
 the reference's run_evaluate.py:56-70, SMPL for the three genders from the
-licensed files or synthetic, the distribution predictor from a reference
-checkpoint or random weights, and --svd_impl auto taking the LAPACK-sign
-SVD exactly for a .tar/.pth/.pt checkpoint. Added: --device (default cuda;
-a run that asks for cuda and finds none fails). `lapack_callback` is numpy's
-sgesdd on a host copy on every device: it is never swapped for `lapack`.
-Not ported yet, and refused when given: more than one device
-(--num_devices > 1, --sample_parallel > 1) and --profile_dir (ROADMAP
-slice 5).
+licensed files or synthetic, the distribution predictor (ResNet-18 or
+ResNet-50, MODEL.NUM_RESNET_LAYERS) from a reference checkpoint, the JAX
+package's flax variables file (told apart by the content) or random
+weights, and --svd_impl auto taking the LAPACK-sign SVD exactly for a
+reference checkpoint. Added: --device (default cuda; a run that asks for
+cuda and finds none fails). `lapack_callback` is numpy's sgesdd on a host
+copy on every device: it is never swapped for `lapack`. Not ported yet,
+and refused when given: more than one device (--num_devices > 1,
+--sample_parallel > 1, parallel/) and --profile_dir
+(runtime/profiling.py).
 """
 
 import argparse
@@ -25,16 +27,15 @@ def _refuse_unported(args):
     than being ignored."""
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(
-            f"--num_devices {args.num_devices}: the multi-device paths are "
-            "ROADMAP slice 5, not ported yet; the port runs on one device")
+            f"--num_devices {args.num_devices}: the multi-device paths "
+            "(parallel/mesh.py) are not ported yet; the port runs on one device")
     if args.sample_parallel > 1:
         raise NotImplementedError(
             f"--sample_parallel {args.sample_parallel}: sharding the samples "
-            "across devices is ROADMAP slice 5, not ported yet")
+            "across devices (parallel/mesh.py) is not ported yet")
     if args.profile_dir is not None:
         raise NotImplementedError(
-            "--profile_dir: profiling (runtime/profiling.py) is ROADMAP "
-            "slice 5, not ported yet")
+            "--profile_dir: profiling (runtime/profiling.py) is not ported yet")
 
 
 def select_dataset(args, pose_shape_cfg):
@@ -147,8 +148,9 @@ def build_parser():
     parser.add_argument("--dataset_path", type=str, default=None,
                         help="Override configs.paths dataset location.")
     parser.add_argument("--pose_shape_weights", "-W3D", type=str, default=None,
-                        help="Reference predictor checkpoint (.tar/.pth/.pt); "
-                             "random weights without one.")
+                        help="Reference predictor checkpoint (torch file) "
+                             "or flax variables file; random weights "
+                             "without one.")
     parser.add_argument("--pose_shape_cfg", type=str, default=None)
     parser.add_argument("--svd_impl", type=str, default="auto",
                         choices=["auto", "jacobi", "lapack",

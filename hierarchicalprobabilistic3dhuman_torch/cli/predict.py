@@ -9,10 +9,12 @@ cropped photos or on uncropped ones through the HRNet keypoint-bootstrap
 detector, with the uncrop and samples figures and a bfloat16 HRNet, plus
 --device (default cuda; a run that asks for cuda and finds none fails), the
 figure size and the sample count. --pose_shape_weights and
---pose2D_hrnet_weights take the reference's checkpoints (.tar/.pth/.pt);
-without one the network is randomly initialised from seed 0. --svd_impl
-auto takes the LAPACK-sign SVD exactly when a reference predictor
-checkpoint is given (the JAX package's cli/evaluate.py:81-83). More than
+--pose2D_hrnet_weights take a reference checkpoint (a torch file) or the
+JAX package's flax variables file, told apart by the content; without one
+the network is randomly initialised from seed 0. --svd_impl auto takes the
+LAPACK-sign SVD exactly when a reference predictor checkpoint is given
+(the JAX package's cli/evaluate.py:81-83). MODEL.NUM_RESNET_LAYERS of
+--pose_shape_cfg picks ResNet-18 or ResNet-50. More than
 one device (--num_devices > 1) is not ported yet and is refused. Without
 the licensed SMPL files the synthetic SMPL model is used.
 """
@@ -24,13 +26,15 @@ import torch
 
 def resolve_svd_impl(svd_impl, pose_shape_weights):
     """--svd_impl auto: the LAPACK-sign SVD for a reference checkpoint
-    (trained on torch.svd's signs), else the Jacobi SVD."""
-    from hierarchicalprobabilistic3dhuman_torch.models.weights import (
-        CHECKPOINT_SUFFIXES)
+    (trained on torch.svd's signs), else (random weights, or the JAX
+    package's flax variables, trained on the Jacobi SVD's) the Jacobi
+    SVD."""
+    from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
+        checkpoint_format)
     if svd_impl != "auto":
         return svd_impl
-    return ("lapack" if (pose_shape_weights or "").endswith(CHECKPOINT_SUFFIXES)
-            else "jacobi")
+    return ("lapack" if pose_shape_weights
+            and checkpoint_format(pose_shape_weights) == "torch" else "jacobi")
 
 
 def load_or_init(module, path, load_state_dict, generator, flag):
@@ -43,7 +47,7 @@ def load_or_init(module, path, load_state_dict, generator, flag):
     if path is None:
         print(f"WARNING: no --{flag} given; using random init.")
     else:
-        module.load_state_dict(load_state_dict(path), strict=True)
+        module.load_state_dict(load_state_dict(path, module), strict=True)
         print(f"Loaded --{flag} from {path}")
     return module
 
@@ -53,8 +57,8 @@ def _refuse_unported(args):
     than being ignored."""
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(
-            f"--num_devices {args.num_devices}: the multi-device paths are "
-            "ROADMAP slice 5, not ported yet; the port runs on one device")
+            f"--num_devices {args.num_devices}: the multi-device paths "
+            "(parallel/mesh.py) are not ported yet; the port runs on one device")
 
 
 def _make_detector(args, hrnet, hrnet_cfg, device):
@@ -158,14 +162,13 @@ def build_predictor(args):
 
 
 def build_pose_shape_model(pose_shape_cfg, svd_impl):
-    """The distribution predictor the config describes (ResNet-18 only)."""
+    """The distribution predictor the config describes."""
     from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
         PoseMFShapeGaussianNet)
     model_cfg = pose_shape_cfg.MODEL
-    if model_cfg.NUM_RESNET_LAYERS != 18:
-        raise NotImplementedError("only the ResNet-18 encoder is ported")
     return PoseMFShapeGaussianNet(
         num_in_channels=model_cfg.NUM_IN_CHANNELS,
+        num_resnet_layers=model_cfg.NUM_RESNET_LAYERS,
         embed_dim=model_cfg.EMBED_DIM,
         delta_i=model_cfg.DELTA_I,
         delta_i_weight=model_cfg.DELTA_I_WEIGHT,
@@ -202,8 +205,9 @@ def build_parser():
     parser.add_argument("--save_dir", "-S", type=str, required=True,
                         help="Directory to save predictions/visualisations.")
     parser.add_argument("--pose_shape_weights", "-W3D", type=str, default=None,
-                        help="Reference predictor checkpoint (.tar/.pth/.pt); "
-                             "random weights without one.")
+                        help="Reference predictor checkpoint (torch file) "
+                             "or flax variables file; random weights "
+                             "without one.")
     parser.add_argument("--pose_shape_cfg", type=str, default=None)
     parser.add_argument("--svd_impl", type=str, default="auto",
                         choices=["auto", "jacobi", "lapack", "lapack_callback"],
@@ -213,8 +217,9 @@ def build_parser():
                              "host); 'auto' takes 'lapack' for a reference "
                              "checkpoint, else 'jacobi'.")
     parser.add_argument("--pose2D_hrnet_weights", "-W2D", type=str, default=None,
-                        help="Reference HRNet-W48 checkpoint (.tar/.pth/.pt); "
-                             "random weights without one.")
+                        help="Reference HRNet-W48 checkpoint (torch file) "
+                             "or flax variables file; random weights "
+                             "without one.")
     parser.add_argument("--cropped_images", "-C", action="store_true",
                         help="Images are already cropped and centred.")
     parser.add_argument("--detector", type=str, default="auto",

@@ -12,13 +12,18 @@ experiment directory has the reference's layout:
 Without the training files (AMASS/H36M poses, textures, LSUN backgrounds)
 the datasets fall back to OnTheFlySMPLTrainDataset.synthetic(), and without
 the licensed SMPL files the model to SMPL.synthetic(), as in the JAX
-package. The checkpoints are the reference's torch dicts; a port-trained
+package. MODEL.NUM_RESNET_LAYERS (-O) picks ResNet-18 or ResNet-50. The
+checkpoints it writes are the reference's torch dicts; a port-trained
 predictor was trained on the Jacobi SVD's signs, so evaluate it with
---svd_impl jacobi. Added: --device (default cuda; a run that asks for cuda
-and finds none fails). Not ported yet, and refused when given: more than
-one device or process (--num_devices > 1, --sample_parallel > 1,
---coordinator_address, --num_processes, --process_id), the native loader
-(--native_data_dir) and --profile_dir.
+--svd_impl jacobi. -R N resumes from epoch_{N:03d}.tar in either layout,
+told apart by the content: the reference's, or the JAX package's pickle
+(flax trees and optax.adam's state, carried into torch.optim.Adam's), so
+a JAX experiment directory (its pose_shape_cfg.yaml and
+encoder_precision.txt too) resumes here. Added: --device (default cuda; a
+run that asks for cuda and finds none fails). Not ported yet, and refused
+when given: more than one device or process (--num_devices > 1,
+--sample_parallel > 1, --coordinator_address, --num_processes,
+--process_id), the native loader (--native_data_dir) and --profile_dir.
 """
 
 import argparse
@@ -57,32 +62,57 @@ def _refuse_unported(args):
     if args.num_devices is not None and args.num_devices > 1:
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: the multi-device paths "
-            "(parallel/) are ROADMAP slice 5, not ported yet; the port "
-            "trains on one device")
+            "(parallel/mesh.py, parallel/sharded_train.py) are not ported "
+            "yet; the port trains on one device")
     if args.sample_parallel > 1:
         raise NotImplementedError(
             f"--sample_parallel {args.sample_parallel}: sharding the samples "
-            "across devices is ROADMAP slice 5, not ported yet")
+            "across devices (parallel/sharded_train.py) is not ported yet")
     for flag in ("coordinator_address", "num_processes", "process_id"):
         if getattr(args, flag) is not None:
             raise NotImplementedError(
-                f"--{flag}: multi-process training is ROADMAP slice 5, not "
-                "ported yet")
+                f"--{flag}: multi-process training (parallel/mesh.py's "
+                "distributed_init) is not ported yet")
     if args.native_data_dir is not None:
         raise NotImplementedError(
             "--native_data_dir: the native loader (data/native_loader.py, "
-            "native/batch_sampler.cpp) is ROADMAP slice 5, not ported yet")
+            "native/batch_sampler.cpp) is not ported yet")
     if args.profile_dir is not None:
         raise NotImplementedError(
-            "--profile_dir: profiling (runtime/profiling.py) is ROADMAP "
-            "slice 5, not ported yet")
+            "--profile_dir: profiling (runtime/profiling.py) is not ported yet")
 
 
-def run_train(args):
+def build_model_and_optimizer(pose_shape_cfg, device, rng_seed=0,
+                              bf16_encoder=False, checkpoint=None):
+    """The predictor the config describes, its weights drawn from
+    `rng_seed`, and its Adam (optax.adam's defaults), on `device`; with a
+    training checkpoint in either layout
+    (runtime/checkpointing.py::load_training_checkpoint), both resumed
+    from it.
+
+    :return: model, optimizer, the checkpoint in the reference's layout
+        (None without one)
+    """
     import torch
 
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
         build_pose_shape_model)
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import (
+        init_weights, to_reference_layout)
+    model = build_pose_shape_model(pose_shape_cfg, "jacobi")
+    init_weights(model, torch.Generator().manual_seed(rng_seed))
+    model.encoder_bf16 = bf16_encoder
+    model = model.to(device)
+    optimizer = torch.optim.Adam(model.parameters(), lr=pose_shape_cfg.TRAIN.LR,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    if checkpoint is not None:
+        checkpoint = to_reference_layout(checkpoint, model, optimizer)
+        model.load_state_dict(checkpoint["model_state_dict"])
+        optimizer.load_state_dict(checkpoint["optimiser_state_dict"])
+    return model, optimizer, checkpoint
+
+
+def run_train(args):
     from hierarchicalprobabilistic3dhuman_torch.configs import (
         get_pose_shape_cfg_defaults, paths)
     from hierarchicalprobabilistic3dhuman_torch.data.on_the_fly_smpl_train_dataset import (
@@ -90,7 +120,6 @@ def run_train(args):
     from hierarchicalprobabilistic3dhuman_torch.models.canny_edge_detector import (
         CannyEdgeDetector)
     from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
-    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
     from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
         TexturedIUVRenderer)
     from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
@@ -170,17 +199,8 @@ def run_train(args):
         device, img_wh=D, render_rgb=True, projection_type="perspective",
         perspective_focal_length=pose_shape_cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH)
 
-    pose_shape_model = build_pose_shape_model(pose_shape_cfg, "jacobi")
-    init_weights(pose_shape_model, torch.Generator().manual_seed(args.rng_seed))
-    pose_shape_model.encoder_bf16 = args.bf16_encoder
-    pose_shape_model = pose_shape_model.to(device)
-    # optax.adam's defaults.
-    optimizer = torch.optim.Adam(pose_shape_model.parameters(),
-                                 lr=pose_shape_cfg.TRAIN.LR,
-                                 betas=(0.9, 0.999), eps=1e-8)
-    if checkpoint is not None:
-        pose_shape_model.load_state_dict(checkpoint["model_state_dict"])
-        optimizer.load_state_dict(checkpoint["optimiser_state_dict"])
+    pose_shape_model, optimizer, checkpoint = build_model_and_optimizer(
+        pose_shape_cfg, device, args.rng_seed, args.bf16_encoder, checkpoint)
 
     # Metric list (reference :115)
     metrics = ['PVE', 'PVE-SC', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC', 'MPJPE-PA',

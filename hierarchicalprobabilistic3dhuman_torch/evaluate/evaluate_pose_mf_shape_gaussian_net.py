@@ -22,7 +22,7 @@ evaluate_poseMF_shapeGaussian_net.py:19-258:
 
 Sampling draws come from a torch.Generator seeded with RNG_SEED, one set per
 batch (sample_draws), where the JAX driver splits its key once per batch.
-There is no mesh: the multi-device paths are ROADMAP slice 5.
+There is no mesh: the multi-device paths (parallel/) are not ported yet.
 """
 
 import os
@@ -332,7 +332,9 @@ def evaluate_pose_mf_shape_gaussian_net(pose_shape_model,
     compute_joints2d = any("joints2D" in m for m in metrics)
     compute_silhouettes = any("silhouette" in m for m in metrics)
     compute_samples = any("samples" in m for m in metrics)
-    silhouette_renderer = (TexturedIUVRenderer(device, img_wh=D, render_rgb=False)
+    silhouette_renderer = (TexturedIUVRenderer(device, img_wh=D,
+                                               projection_type="orthographic",
+                                               render_rgb=False)
                            if compute_silhouettes else None)
     frame_metrics_fn = (make_eval_frame_metrics_fn(metrics) if on_device_metrics
                         else None)

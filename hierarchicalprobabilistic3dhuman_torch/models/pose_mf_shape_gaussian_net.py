@@ -3,7 +3,9 @@
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/models/
 pose_mf_shape_gaussian_net.py::PoseMFShapeGaussianNet (:81-241):
 
-  * ResNet-18 encoder over the 18-channel proxy representation;
+  * ResNet-18 or ResNet-50 encoder over the 18-channel proxy
+    representation (num_resnet_layers, the JAX package's :110-118): 512
+    features and fc1 512 wide, or 2048 features and fc1 1024 wide;
   * shape head -> diagonal Gaussian (mean, log std) over SMPL betas;
   * glob/cam heads predict deltas against fixed initial estimates
     (identity rot6d, [0.9, 0, 0] weak-perspective cam);
@@ -30,13 +32,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hierarchicalprobabilistic3dhuman_torch.models.resnet import resnet18
+from hierarchicalprobabilistic3dhuman_torch.models.resnet import resnet18, resnet50
 from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL_PARENTS
 from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import (
     proper_svd3x3, proper_svd3x3_gesdd, proper_svd3x3_lapack)
 from hierarchicalprobabilistic3dhuman_torch.utils.device import full_f32_matmul
 
 SVD_IMPLS = ("jacobi", "lapack", "lapack_callback")
+# num_resnet_layers -> (encoder, fc1 width)
+ENCODERS = {18: (resnet18, 512), 50: (resnet50, 1024)}
 
 
 def immediate_parents_to_all_parents(immediate_parents):
@@ -62,13 +66,15 @@ _INIT_CAM = np.array([0.9, 0.0, 0.0], dtype=np.float32)
 class PoseMFShapeGaussianNet(nn.Module):
     """Input (B, C, D, D) proxy representation -> distribution parameters."""
 
-    def __init__(self, num_in_channels=18, embed_dim=256, delta_i=True,
-                 delta_i_weight=1.0, num_smpl_betas=10, svd_sweeps=8,
-                 svd_impl="jacobi", encoder_bf16=False):
+    def __init__(self, num_in_channels=18, num_resnet_layers=18, embed_dim=256,
+                 delta_i=True, delta_i_weight=1.0, num_smpl_betas=10,
+                 svd_sweeps=8, svd_impl="jacobi", encoder_bf16=False):
         super().__init__()
         if svd_impl not in SVD_IMPLS:
             raise ValueError(f"svd_impl must be one of {SVD_IMPLS}, got "
                              f"{svd_impl!r}")
+        if num_resnet_layers not in ENCODERS:
+            raise ValueError(f"Unsupported resnet depth {num_resnet_layers}")
         self.svd_impl = svd_impl
         self.encoder_bf16 = encoder_bf16
         self.parents_dict = immediate_parents_to_all_parents(
@@ -79,13 +85,14 @@ class PoseMFShapeGaussianNet(nn.Module):
         self.delta_i_weight = delta_i_weight
         self.svd_sweeps = svd_sweeps
 
-        fc1_dim = 512
-        self.image_encoder = resnet18(in_channels=num_in_channels)
-        self.fc1 = nn.Linear(512, fc1_dim)
+        encoder, fc1_dim = ENCODERS[num_resnet_layers]
+        self.image_encoder = encoder(in_channels=num_in_channels)
+        feat_dim = self.image_encoder.num_features
+        self.fc1 = nn.Linear(feat_dim, fc1_dim)
         self.fc_shape = nn.Linear(fc1_dim, num_smpl_betas * 2)
         self.fc_cam = nn.Linear(fc1_dim, 3)
         self.fc_glob = nn.Linear(fc1_dim, 6)
-        self.fc_embed = nn.Linear(512 + num_smpl_betas * 2 + 6 + 3, embed_dim)
+        self.fc_embed = nn.Linear(feat_dim + num_smpl_betas * 2 + 6 + 3, embed_dim)
         hidden = embed_dim // 2
         self.fc_pose = nn.ModuleList(
             nn.Sequential(nn.Linear(embed_dim + 21 * len(self.parents_dict[j]),

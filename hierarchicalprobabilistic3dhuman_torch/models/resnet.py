@@ -1,10 +1,13 @@
-"""ResNet-18 image encoder for the 18-channel proxy representation.
+"""ResNet-18/50 image encoder for the 18-channel proxy representation.
 
-Counterpart of hierarchicalprobabilistic3dhuman_tpu/models/resnet.py:17-127
-(BasicBlock, ResNet, resnet18): the torchvision layout with the first conv
-taking `in_channels` inputs, no final FC, global-average-pooled features
-out. Parameter names are the reference checkpoint's state-dict keys
-(conv1, bn1, layer{s}.{i}.conv1 ..., downsample.0/.1).
+Counterpart of hierarchicalprobabilistic3dhuman_tpu/models/resnet.py:17-131
+(BasicBlock, Bottleneck, ResNet, resnet18, resnet50): the torchvision
+layout with the first conv taking `in_channels` inputs, no final FC,
+global-average-pooled features out (512 for ResNet-18, 2048 for ResNet-50).
+The first block of a stage has a downsample when its stride or its width
+changes, so every stage of ResNet-50 has one, stage 1's at stride 1
+(64 -> 256). Parameter names are the reference checkpoint's state-dict keys
+(conv1, bn1, layer{s}.{i}.conv1 ... conv3, downsample.0/.1).
 
 BatchNorm in train mode follows flax's nn.BatchNorm(momentum=0.9) (the JAX
 package's :30-68), not torch's: the batch is normalised with the biased
@@ -44,6 +47,15 @@ class BatchNorm2d(nn.BatchNorm2d):
                 + self.bias[None, :, None, None])
 
 
+def _downsample(in_planes, out_planes, stride):
+    """The residual's 1x1 conv + BatchNorm where the block changes the
+    stride or the width, else None."""
+    if stride == 1 and in_planes == out_planes:
+        return None
+    return nn.Sequential(nn.Conv2d(in_planes, out_planes, 1, stride, bias=False),
+                         BatchNorm2d(out_planes))
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -53,11 +65,7 @@ class BasicBlock(nn.Module):
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.downsample = None
-        if stride != 1 or in_planes != planes:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, planes, 1, stride, bias=False),
-                BatchNorm2d(planes))
+        self.downsample = _downsample(in_planes, planes, stride)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -66,10 +74,35 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
-class ResNet(nn.Module):
-    """Encoder trunk: (B, C, H, W) -> (B, 512) pooled features."""
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 with the stride -> 1x1 at 4x the width (the JAX
+    package's :49-89)."""
+    expansion = 4
 
-    def __init__(self, layers=(2, 2, 2, 2), in_channels=18):
+    def __init__(self, in_planes, planes, stride=1):
+        super().__init__()
+        out_planes = planes * self.expansion
+        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, out_planes, 1, bias=False)
+        self.bn3 = BatchNorm2d(out_planes)
+        self.downsample = _downsample(in_planes, out_planes, stride)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """Encoder trunk: (B, C, H, W) -> (B, 512 * block.expansion) pooled
+    features."""
+
+    def __init__(self, block=BasicBlock, layers=(2, 2, 2, 2), in_channels=18):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
@@ -79,18 +112,23 @@ class ResNet(nn.Module):
             blocks = []
             for i in range(num_blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
-                blocks.append(BasicBlock(in_planes, planes, stride))
-                in_planes = planes
+                blocks.append(block(in_planes, planes, stride))
+                in_planes = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
-        self.num_stages = len(layers)
+        self.layers = tuple(layers)
+        self.num_features = in_planes
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
-        for stage in range(self.num_stages):
+        for stage in range(len(self.layers)):
             x = getattr(self, f"layer{stage + 1}")(x)
         return x.mean(dim=(2, 3))
 
 
 def resnet18(in_channels=18):
-    return ResNet(layers=(2, 2, 2, 2), in_channels=in_channels)
+    return ResNet(BasicBlock, (2, 2, 2, 2), in_channels)
+
+
+def resnet50(in_channels=18):
+    return ResNet(Bottleneck, (3, 4, 6, 3), in_channels)

@@ -410,7 +410,9 @@ def predict_pose_mf_shape_gaussian_net(pose_shape_model, pose_shape_cfg,
         per_vertex_uncertainty (6890,)} as numpy
     """
     os.makedirs(save_dir, exist_ok=True)
-    renderer = TexturedIUVRenderer(img_wh=visualise_wh, device=device)
+    renderer = TexturedIUVRenderer(device, img_wh=visualise_wh,
+                                   projection_type="orthographic",
+                                   render_rgb=True)
     hrnet_predictor = make_hrnet_predictor(
         hrnet, hrnet_cfg, device,
         bbox_scale_factor=pose_shape_cfg.DATA.BBOX_SCALE_FACTOR)
@@ -621,7 +623,9 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
     """
     fnames = _list_inputs(image_dir)
     os.makedirs(save_dir, exist_ok=True)
-    renderer = (TexturedIUVRenderer(img_wh=visualise_wh, device=device)
+    renderer = (TexturedIUVRenderer(device, img_wh=visualise_wh,
+                                    projection_type="orthographic",
+                                    render_rgb=True)
                 if save_vis else None)
     core = make_predict_core(
         pose_shape_model, pose_shape_cfg, smpl_model, edge_detect_model,

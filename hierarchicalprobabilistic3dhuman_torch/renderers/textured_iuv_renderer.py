@@ -19,8 +19,9 @@ vertex (texture_mode "vertex", training's default); or, with texture_mode
 "pixel", the atlas UV interpolated and the atlas sampled per pixel. The
 rasterization goes through
 ops/rasterizer_cuda.py: the hand-written kernels for CUDA tensors, their
-plain torch version for CPU tensors. The projection defaults to
-orthographic, the port's first use; training asks for perspective.
+plain torch version for CPU tensors. The constructor's defaults are the
+JAX package's (256^2, perspective, IUV without colours); each caller
+passes what its use needs.
 """
 
 from functools import lru_cache
@@ -33,9 +34,10 @@ from hierarchicalprobabilistic3dhuman_torch.configs import paths
 from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import rasterize
 
 
-@lru_cache(maxsize=1)
-def preprocess_densepose_UV():
-    """Load UV_Processed.mat and compute atlas-offset UVs + per-vertex IUV.
+@lru_cache(maxsize=2)
+def preprocess_densepose_UV(uv_path=None):
+    """Load UV_Processed.mat (`uv_path`, by default the configured one) and
+    compute atlas-offset UVs + per-vertex IUV.
 
     :return dict of numpy arrays:
         faces (13774, 3) int32 into DP vertex indexing,
@@ -43,7 +45,7 @@ def preprocess_densepose_UV():
         verts_uv_offset (7829, 2) atlas UVs (6x4 grid of 24 parts),
         verts_iuv (7829, 3) [part, U, 1-V] per vertex.
     """
-    DP_UV = loadmat(paths.DP_UV_PROCESSED_FILE)
+    DP_UV = loadmat(uv_path or paths.DP_UV_PROCESSED_FILE)
     face_parts = DP_UV["All_FaceIndices"].squeeze().astype(np.int32)
     faces = (DP_UV["All_Faces"] - 1).astype(np.int32)
     verts_map = (DP_UV["All_vertices"][0] - 1).astype(np.int32)
@@ -124,28 +126,34 @@ def _unit(v, eps=1e-9):
 class TexturedIUVRenderer:
     """Batch renderer of SMPL meshes with DensePose IUV and colours.
 
+    The parameters after `device` are the JAX package's, with its defaults
+    (its `backend`, a choice among its own rasterizers, has no counterpart).
+
     :param device: where the DensePose tables live (the meshes' device)
     :param img_wh: square output size
+    :param projection_type: "perspective" or "orthographic"
+    :param perspective_focal_length, orthographic_scale, cam_t: the
+        projection's defaults (cam_t (3,), used where a call passes none)
     :param render_rgb: shade colours (A = 12 attributes per vertex, 11 with
         texture_mode "pixel"); False renders IUV, depth and silhouettes
         alone (A = 3)
-    :param projection_type: "orthographic" or "perspective"
-    :param perspective_focal_length, orthographic_scale, cam_t: the
-        projection's defaults (cam_t (3,), used where a call passes none)
     :param light_t, light_*_color: the default point light
+    :param uv_path: the DensePose UV_Processed.mat (default: configs.paths)
     :param texture_mode: "vertex" or "pixel" (see the module docstring)
     """
 
-    def __init__(self, device, img_wh=512, render_rgb=True,
-                 projection_type="orthographic",
+    def __init__(self, device, img_wh=256,
+                 projection_type="perspective",
                  perspective_focal_length=300.0,
                  orthographic_scale=0.9,
                  cam_t=None,
+                 render_rgb=False,
                  light_t=(0.0, 0.0, -2.0),
                  light_ambient_color=(0.5, 0.5, 0.5),
                  light_diffuse_color=(0.3, 0.3, 0.3),
                  light_specular_color=(0.2, 0.2, 0.2),
                  background_color=(0.0, 0.0, 0.0),
+                 uv_path=None,
                  texture_mode="vertex"):
         if projection_type not in ("perspective", "orthographic"):
             raise ValueError(f"projection_type {projection_type!r}")
@@ -169,7 +177,7 @@ class TexturedIUVRenderer:
             "specular_color": const(light_specular_color),
         }
         self.background_color = const(background_color)
-        dp = preprocess_densepose_UV()
+        dp = preprocess_densepose_UV(uv_path)
         self.faces = torch.as_tensor(dp["faces"], dtype=torch.int64, device=device)
         self.verts_map = torch.as_tensor(dp["verts_map"], dtype=torch.int64,
                                          device=device)

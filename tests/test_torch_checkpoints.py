@@ -29,6 +29,8 @@ from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net im
 from hierarchicalprobabilistic3dhuman_torch.models.weights import (
     init_weights, load_checkpoint, load_hrnet_state_dict,
     load_predictor_state_dict)
+from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
+    save_variables)
 
 # Several test files run at once, one per worker: keep torch to 2 threads
 # each rather than one per core.
@@ -79,7 +81,7 @@ def test_predictor_tar_loads_and_matches_jax(tmp_path):
                          {"model_state_dict": stale})
     assert load_checkpoint(path)["epoch"] == 7
     loaded = TPredictor(embed_dim=64)
-    loaded.load_state_dict(load_predictor_state_dict(path), strict=True)
+    loaded.load_state_dict(load_predictor_state_dict(path, loaded), strict=True)
     loaded.eval()
     for k, v in loaded.state_dict().items():
         assert torch.equal(v, best[k]), k
@@ -102,7 +104,7 @@ def test_predictor_state_dict_fallbacks(tmp_path):
                  str(tmp_path / "b.pt")):
         if path.endswith(".pt"):
             torch.save(sd, path)
-        got = load_predictor_state_dict(path)
+        got = load_predictor_state_dict(path, TPredictor(embed_dim=64))
         assert set(got) == set(sd) and all(torch.equal(got[k], sd[k]) for k in sd)
 
 
@@ -114,13 +116,13 @@ def test_hrnet_tar_loads_and_matches_jax(tmp_path):
     sd["loss.criterion.weight"] = torch.ones(3)
     path = reference_tar(tmp_path / "pose_hrnet.pth", "state_dict", sd)
     loaded = THRNet(**HRNET_KW)
-    loaded.load_state_dict(load_hrnet_state_dict(path), strict=True)
+    loaded.load_state_dict(load_hrnet_state_dict(path, loaded), strict=True)
     loaded.eval()
     for k, v in loaded.state_dict().items():
         assert torch.equal(v, sd[k]), k
 
     x = np.random.RandomState(5).randn(1, 3, D, D).astype(np.float32)
-    jsd = _numpy_sd(load_hrnet_state_dict(path))
+    jsd = _numpy_sd(load_hrnet_state_dict(path, loaded))
     ref = jax.jit(JHRNet(**HRNET_KW).apply)(torch_to_flax_hrnet(jsd),
                                            jnp.asarray(x))
     with torch.no_grad():
@@ -134,8 +136,18 @@ def test_hrnet_tar_loads_and_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("name", ["model.msgpack", "model.npz", "model"])
 def test_other_formats_raise(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        load_predictor_state_dict(str(tmp_path / name))
+    """A file of neither format raises, whatever its name: a msgpack array
+    (not a map of variables), a numpy .npz (a zip without torch's
+    data.pkl), an empty file."""
+    path = tmp_path / name
+    if name.endswith(".msgpack"):
+        path.write_bytes(bytes([0x92, 0x01, 0x02]))
+    elif name.endswith(".npz"):
+        np.savez(path, a=np.zeros(3))
+    else:
+        path.write_bytes(b"")
+    with pytest.raises(ValueError, match="neither"):
+        load_predictor_state_dict(str(path), TPredictor(embed_dim=64))
 
 
 @pytest.mark.parametrize("weights,asked,expected", [
@@ -147,7 +159,16 @@ def test_other_formats_raise(tmp_path, name):
     ("model.tar", "jacobi", "jacobi"),
     (None, "lapack_callback", "lapack_callback"),
 ])
-def test_svd_impl_auto_rule(weights, asked, expected):
-    """The JAX package's cli/evaluate.py:81-83, and no silent switch of an
+def test_svd_impl_auto_rule(tmp_path, weights, asked, expected):
+    """The JAX package's cli/evaluate.py:81-83 (`lapack` for a reference
+    checkpoint, which it tells by the suffix and the port by the content:
+    the files are written as their names say), and no silent switch of an
     explicit choice."""
+    if weights is not None:
+        path = str(tmp_path / weights)
+        if weights.endswith(".msgpack"):
+            save_variables(path, {"params": {"w": np.zeros(2, np.float32)}})
+        else:
+            torch.save({"w": torch.zeros(2)}, path)
+        weights = path
     assert resolve_svd_impl(asked, weights) == expected

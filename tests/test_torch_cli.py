@@ -58,9 +58,10 @@ def test_cuda_is_never_replaced_by_the_cpu(tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port (the evaluation and training slices'
-    included), the three entry scripts and chip_smoke.py, imported in a
-    fresh interpreter, load neither jax/flax/optax nor the JAX package."""
+    """Every module of the port (the evaluation and training slices' and
+    the checkpoint codec included), the three entry scripts and
+    chip_smoke.py, imported in a fresh interpreter, load neither
+    jax/flax/optax/msgpack nor the JAX package."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {REPO!r})
@@ -70,7 +71,8 @@ for name in names + ["run_predict_torch", "run_evaluate_torch",
                      "run_train_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "jaxlib", "flax", "optax", "hierarchicalprobabilistic3dhuman_tpu")]
+       ("jax", "jaxlib", "flax", "optax", "msgpack",
+        "hierarchicalprobabilistic3dhuman_tpu")]
 print(len(names), bad)
 evaluation = ["cli.evaluate", "evaluate.evaluate_pose_mf_shape_gaussian_net",
               "metrics.metric_sums", "metrics.eval_metrics_tracker",
@@ -86,7 +88,9 @@ training = ["cli.train", "train.train_pose_mf_shape_gaussian_net",
             "utils.augmentation.rgb_augmentation", "utils.random_draws",
             "metrics.train_loss_and_metrics_tracker", "runtime.checkpointing",
             "data.on_the_fly_smpl_train_dataset"]
-missing = [m for m in evaluation + training if "{PORT}." + m not in names]
+checkpoints = ["runtime.flax_msgpack", "models.resnet", "models.weights"]
+missing = [m for m in evaluation + training + checkpoints
+           if "{PORT}." + m not in names]
 assert len(names) >= 50 and not missing and not bad, (missing, bad)
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -325,7 +325,7 @@ def test_cli_detector_choices(capsys, tmp_path):
             got = built[loaded].state_dict()
             assert all(torch.equal(got[k], v) for k, v in
                        source.state_dict().items()), extra
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="multi-device"):
         main(["-I", "x", "-S", "y", "--device", "cpu", "--num_devices", "2"])
 
 

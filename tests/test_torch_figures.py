@@ -280,7 +280,8 @@ def cores():
                     jnp.asarray(confs))
 
     eps, w = _draws(key, B, N)
-    trenderer = TRenderer(device="cpu", img_wh=WH)
+    trenderer = TRenderer(device="cpu", img_wh=WH, projection_type="orthographic",
+                          render_rgb=True)
     kwargs = dict(pose_shape_model=tmodel, pose_shape_cfg=port_cfg,
                   smpl_model=TSMPL.synthetic(device="cpu"),
                   edge_detect_model=TCanny(device="cpu", threshold=0.0),

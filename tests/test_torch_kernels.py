@@ -102,7 +102,8 @@ def _smpl_tables(device, hw):
                       aa_rotate_translate_points(rest, X_AXIS, np.pi, ZERO_T),
                       jet_colormap(tensor(rng.rand(1, 6890) * 0.2)),
                       tensor([[0.0, -0.2, 2.5]]), tensor([[0.95, 0.95]]))
-    renderer = TexturedIUVRenderer(img_wh=hw[0], device=device)
+    renderer = TexturedIUVRenderer(device, img_wh=hw[0], projection_type="orthographic",
+                                   render_rgb=True)
     screen, vert_attrs = renderer.raster_inputs(
         views["vertices"], views["cam_t"], views["orthographic_scale"],
         views["verts_features"])
@@ -236,7 +237,8 @@ def test_silhouette_tables_carry_the_iuv_alone():
     scene = chip_smoke.silhouette_scene("cpu", batch=2, img_wh=32)
     assert scene.vert_attrs.shape == (2, 7829, 3)
     assert scene.tables.face_attrs.shape[-1] == 9
-    renderer = TexturedIUVRenderer("cpu", img_wh=32, render_rgb=False)
+    renderer = TexturedIUVRenderer("cpu", img_wh=32, projection_type="orthographic",
+                                   render_rgb=False)
     out = renderer(torch.zeros(1, 6890, 3), cam_t=torch.tensor([[0.0, 0.0, 2.5]]),
                    orthographic_scale=torch.ones(1, 2))
     assert sorted(out) == ["depth_images", "iuv_images", "silhouettes"]

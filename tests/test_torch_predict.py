@@ -103,7 +103,9 @@ def slice_outputs():
 
     tcore = t_make_predict_core(tmodel, port_cfg, TSMPL.synthetic(device="cpu"),
                                 TCanny(device="cpu", threshold=0.0),
-                                TRenderer(device="cpu", img_wh=WH),
+                                TRenderer(device="cpu", img_wh=WH,
+                                          projection_type="orthographic",
+                                          render_rgb=True),
                                 hrnet_cfg, num_uncertainty_samples=N)
     port = tcore(torch.from_numpy(hr_cropped), torch.from_numpy(joints2D),
                  torch.from_numpy(confs), eps=torch.from_numpy(np.asarray(eps)),

@@ -159,7 +159,8 @@ def test_renderer_matches_jax(smpl_scene, interpret_pallas):
     would hide the port's own error; against Pallas the measured maxima are
     0 (IUV, depth) and 4.5e-7 (RGB)."""
     verts, feats, cam_t, scale, lights = smpl_scene
-    port = TRenderer(device="cpu", img_wh=64)(
+    port = TRenderer(device="cpu", img_wh=64, projection_type="orthographic",
+                     render_rgb=True)(
         torch.from_numpy(verts), cam_t=torch.from_numpy(cam_t),
         orthographic_scale=torch.from_numpy(scale),
         lights_rgb_settings={k: torch.from_numpy(v) for k, v in lights.items()},
@@ -188,7 +189,8 @@ def test_smpl_scene_packed_tables_match_pallas_interpret(smpl_scene,
     """One synthetic-SMPL 6-view scene (13,824 padded faces, 108 chunks)
     through the port's plain rasterizer and JAX's Pallas kernel."""
     verts, feats, cam_t, scale, _ = smpl_scene
-    renderer = TRenderer(device="cpu", img_wh=48)
+    renderer = TRenderer(device="cpu", img_wh=48, projection_type="orthographic",
+                         render_rgb=True)
     screen, vert_attrs = renderer.raster_inputs(
         torch.from_numpy(verts), torch.from_numpy(cam_t),
         torch.from_numpy(scale), torch.from_numpy(feats))

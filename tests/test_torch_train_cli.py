@@ -64,7 +64,7 @@ def test_run_train_torch_both_stages_on_cpu(tmp_path):
     assert set(ckpt) == CKPT_KEYS and ckpt["epoch"] == 0
     model = PoseMFShapeGaussianNet(embed_dim=64)
     model.load_state_dict(load_predictor_state_dict(
-        str(exp / "saved_models" / "epoch_000.tar")), strict=True)
+        str(exp / "saved_models" / "epoch_000.tar"), model), strict=True)
     assert (exp / "encoder_precision.txt").read_text() == "float32"
 
 
@@ -96,7 +96,8 @@ def test_training_loop_resumes(tmp_path):
     parts = dict(pose_shape_cfg=cfg, smpl_model=SMPL.synthetic(dev),
                  edge_detect_model=CannyEdgeDetector(dev),
                  renderer=TexturedIUVRenderer(dev, img_wh=D,
-                                              projection_type="perspective"),
+                                              projection_type="perspective",
+                                              render_rgb=True),
                  train_dataset=None, val_dataset=None, metrics=METRICS,
                  model_save_dir=str(tmp_path), device=dev,
                  logs_save_path=str(tmp_path / "log.pkl"), loaders=_Loaders(D),

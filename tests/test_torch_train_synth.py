@@ -82,7 +82,8 @@ def test_perspective_textured_render_matches_jax(scene, interpret_pallas, route)
     mode = "pixel" if route == "pixel" else "vertex"
     tex = texels if route == "pre-sampled" else atlas
     port = TRenderer("cpu", img_wh=D, projection_type="perspective",
-                     perspective_focal_length=F, texture_mode=mode)(
+                     perspective_focal_length=F, render_rgb=True,
+                     texture_mode=mode)(
         torch.from_numpy(verts), cam_t=torch.from_numpy(cam_t),
         lights_rgb_settings={k: torch.from_numpy(v) for k, v in lights.items()},
         textures=torch.from_numpy(tex))
@@ -124,7 +125,7 @@ def test_synth_data_matches_jax(interpret_pallas):
     tsynth = ttrain.make_synth_data_fn(
         tc, TSMPL.synthetic("cpu"),
         TRenderer("cpu", img_wh=D, projection_type="perspective",
-                  perspective_focal_length=F),
+                  perspective_focal_length=F, render_rgb=True),
         TCanny("cpu", threshold=0.0))
     tproxy, ttargets = tsynth(JaxDraws(key), torch.from_numpy(pose),
                               torch.from_numpy(bg), torch.from_numpy(tex))
