@@ -92,7 +92,28 @@ Phases (any failure exits non-zero before the final line):
      port's save_variables (outputs, metrics and per-frame files within
      1e-6); (d) train img/s per stage at B=72 with the split, launches and
      busy share as in 7d, SSP-3D frames/s at batch 8, the load time of
-     each checkpoint format, and K1 on 8a's tables beside its bound.
+     each checkpoint format, and K1 on 8a's tables beside its bound;
+  9. the training data path at full width (ResNet-18 as in phase 7,
+     random weights, synthetic SMPL): (a) synthetic source files in the
+     real ones' shapes (432 poses as train/val npz files of 288 and 144; a
+     textures npz of 8 grey and 40 non-grey 1200 x 800 atlases; 160 train
+     and 40 val background jpgs of 640 x 480), packed by the port's
+     pack_training_stores into train/ and val/ with per-vertex texels (the
+     three counts differ on purpose), the sampler built with g++; (b)
+     `run_train_torch.py -O LOSS.STAGE_CHANGE_EPOCH 1 --num_epochs 2
+     --native_data_dir` (12 launches of each kernel), its experiment
+     checked as in 7b, and both kernels held to their plain versions on the
+     tables of the run's last render; (c) the sampler: every record of 20
+     batches its own store's, one seed and one thread twice give equal
+     bytes, no window twice in sequential mode with 2 threads; (d)
+     --profile_dir on one training epoch from stores of 72 records a split
+     and on `run_evaluate_torch.py --dataset ssp3d --batch_size 8` on phase
+     6's folder: each trace parses and holds the card's kernel events, K1's
+     among them, with the wall time without and with the profiler; (e)
+     pw3d_eval_extract on a synthetic 2-person sequence, card vs CPU; (f)
+     the sampler's batch ms, the upload of a packed and of a fallback
+     batch, train img/s per stage fed from each, and K1 on 9b's tables
+     beside its bound.
      Each phase logs its wall time.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
@@ -2524,6 +2545,470 @@ def phase_resnet50(workdir, device):
     return readings
 
 
+# Phase 9: the training data path. Synthetic source files in the shapes of
+# the real ones (poses of 72 float32, 1200 x 800 uint8 atlases, 640 x 480
+# jpgs), packed per split; the three stores' record counts differ on
+# purpose (288 / 48 / 160 train, 144 / 48 / 40 val).
+NATIVE_POSES = {"train": 288, "val": 144}
+NATIVE_BACKGROUNDS = {"train": 160, "val": 40}
+NATIVE_TEXTURES = (8, 40)                # grey, non-grey atlases
+TEXTURE_HW = (1200, 800)
+BACKGROUND_HW = (480, 640)
+# Phase 9d's stores: 72 poses a split, one step each.
+PROFILE_POSES = 72
+# Phase 9e: the card against the CPU on pw3d_eval_extract's outputs.
+PW3D_PX_TOL = 1e-3
+PW3D_POSE_TOL = 1e-5
+
+
+def log_map_tolerance(rotvecs):
+    """How far two float32 evaluations of the SO(3) log map (so3_log) may
+    differ, per rotation vector: 1e-5 rad plus four float32 ulps of its
+    cosine carried through the generic branch w theta / (2 sin theta), an
+    error of ~ulp theta / sin^2 theta where sin theta is small near pi (s =
+    sin theta above pi / 2, else 1). The near-pi branch (theta > pi - 1e-3)
+    is not covered.
+
+    :param rotvecs: (N, 3) float64 rotation vectors
+    :return: (N,) tolerances in rad
+    """
+    theta = np.linalg.norm(rotvecs, axis=-1)
+    s = np.where(theta > np.pi / 2, np.sin(theta), 1.0)
+    return 1e-5 + 4 * np.finfo(np.float32).eps * theta / s ** 2
+
+
+def write_train_sources(root, n_poses, n_grey, n_nongrey, n_backgrounds,
+                        texture_hw=TEXTURE_HW, background_hw=BACKGROUND_HW, seed=0):
+    """Training source files in the real ones' layouts, from a seed: an npz
+    of poses (fnames, poses (n, 72) float32), an npz of grey and non-grey
+    uint8 (n, H, W, 3) atlases, and a folder of jpgs (smooth random images,
+    upsampled noise, so that jpg neither bloats nor blurs them away).
+
+    :return: {"poses": path, "textures": path, "backgrounds": directory}
+    """
+    import cv2
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "backgrounds"))
+    out = {"poses": os.path.join(root, "poses.npz"),
+           "textures": os.path.join(root, "textures.npz"),
+           "backgrounds": os.path.join(root, "backgrounds")}
+    poses = (rng.randn(n_poses, 72) * 0.3).astype(np.float32)
+    np.savez(out["poses"], fnames=np.array([f"h36m_{i:06d}" for i in range(n_poses)]),
+             poses=poses)
+
+    def smooth(n, hw):
+        small = (rng.rand(n, max(hw[0] // 40, 2), max(hw[1] // 40, 2), 3) * 255
+                 ).astype(np.uint8)
+        return np.stack([cv2.resize(a, (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR)
+                         for a in small]) if n else np.zeros((0, *hw, 3), np.uint8)
+
+    grey = np.repeat(smooth(n_grey, texture_hw)[..., :1], 3, axis=-1)
+    np.savez(out["textures"], grey=grey, nongrey=smooth(n_nongrey, texture_hw))
+    for i, img in enumerate(smooth(n_backgrounds, background_hw)):
+        cv2.imwrite(os.path.join(out["backgrounds"], f"bg_{i:05d}.jpg"), img)
+    return out
+
+
+def pack_split(out_dir, sources, img_wh):
+    """The port's pack functions over one split's sources into out_dir
+    (per-vertex texels).
+
+    :return: {store file: bytes}
+    """
+    from hierarchicalprobabilistic3dhuman_torch.data.pack_training_stores import (
+        pack_backgrounds, pack_poses, pack_textures)
+    os.makedirs(out_dir)
+    pack_poses(sources["poses"], os.path.join(out_dir, "poses.bin"))
+    pack_textures(sources["textures"], os.path.join(out_dir, "textures.bin"))
+    pack_backgrounds(sources["backgrounds"], os.path.join(out_dir, "backgrounds.bin"),
+                     img_wh=img_wh)
+    return {f: os.path.getsize(os.path.join(out_dir, f))
+            for f in ("poses.bin", "textures.bin", "backgrounds.bin")}
+
+
+def read_stores(store_dir):
+    """The three stores of a split as numpy arrays."""
+    from hierarchicalprobabilistic3dhuman_torch.data.native_loader import (
+        read_store_meta)
+    out = {}
+    for name in ("poses", "textures", "backgrounds"):
+        path = os.path.join(store_dir, f"{name}.bin")
+        shape, dtype = read_store_meta(path)
+        out[name] = np.fromfile(path, dtype=dtype).reshape(shape)
+    return out
+
+
+def store_paths(store_dir):
+    return [os.path.join(store_dir, f"{name}.bin")
+            for name in ("poses", "textures", "backgrounds")]
+
+
+def check_sampler(tag, store_dir, batch=72):
+    """The sampler as built on this machine: every record of 20 shuffled
+    batches (2 threads) is a record of its own store; two samplers with one
+    thread and one seed give equal bytes; in sequential mode with 2 threads
+    no window comes twice."""
+    from hierarchicalprobabilistic3dhuman_torch.data.native_loader import (
+        NativeBatchSampler)
+    stores = read_stores(store_dir)
+    index = {name: {r.tobytes(): i for i, r in enumerate(a)}
+             for name, a in stores.items()}
+    sampler = NativeBatchSampler(store_paths(store_dir), batch, n_threads=2, seed=3)
+    try:
+        drawn = {name: set() for name in stores}
+        for _ in range(20):
+            for name, field in zip(stores, sampler.next()):
+                for row in field:
+                    i = index[name].get(row.tobytes())
+                    if i is None:
+                        raise AssertionError(f"[{tag}] a {name} row that is no "
+                                             f"record of its store")
+                    drawn[name].add(i)
+    finally:
+        sampler.close()
+    pair = [NativeBatchSampler(store_paths(store_dir), batch, n_threads=1, seed=11)
+            for _ in range(2)]
+    try:
+        equal = all(a.tobytes() == b.tobytes() for _ in range(5)
+                    for a, b in zip(pair[0].next(), pair[1].next()))
+    finally:
+        for s in pair:
+            s.close()
+    # Windows repeat after n / 4 batches, and two threads may hand theirs
+    # over out of order: read half as many.
+    n = len(stores["poses"]) // 8
+    sequential = NativeBatchSampler(store_paths(store_dir)[:1], 4, n_threads=2,
+                                    shuffle=False)
+    try:
+        windows = [[index["poses"][row.tobytes()] for row in sequential.next()[0]]
+                   for _ in range(n)]
+    finally:
+        sequential.close()
+    windows_ok = (len({w[0] for w in windows}) == n
+                  and all(w == list(range(w[0], w[0] + 4)) and w[0] % 4 == 0
+                          for w in windows))
+    log(f"[{tag}] sampler: 20 batches of {batch}, every record its own "
+        f"store's ({ {k: f'{len(v)} of {len(stores[k])}' for k, v in drawn.items()} }"
+        f" distinct records drawn); one thread, one seed, twice: equal bytes "
+        f"{equal}; sequential, 2 threads, {n} windows of 4: each once "
+        f"{windows_ok}")
+    if not equal or not windows_ok:
+        raise AssertionError(f"[{tag}] the sampler is not deterministic or "
+                             f"repeats a window")
+
+
+def check_trace(path):
+    """A Chrome trace that parses and holds the card's kernel events, K1's
+    raster_faces and resolve among them.
+
+    :return: the file's bytes, the seconds to parse it, its kernel events
+    """
+    t0 = time.perf_counter()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    parse_s = time.perf_counter() - t0
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = {part: sum(part in e.get("name", "") for e in kernels)
+          for part in ("raster_faces", "resolve")}
+    return os.path.getsize(path), parse_s, len(events), len(kernels), k1
+
+
+def profiled_runs(tag, what, main, argv, profile_dir, attempts=2):
+    """`main(argv)` once without and once with --profile_dir, each ending
+    in a synchronize; the trace checked (check_trace). The profiler can lose
+    device events, so a trace without K1's is taken again, up to
+    `attempts` times, before the phase fails."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(argv(0))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for attempt in range(1, attempts + 1):
+        out_dir = f"{profile_dir}_{attempt}"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(argv(attempt) + ["--profile_dir", out_dir])
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+        size, parse_s, n_events, n_kernels, k1 = check_trace(
+            os.path.join(out_dir, "trace.json"))
+        log(f"[{tag}] {what}: {plain_s:.2f} s without the profiler, "
+            f"{profiled_s:.2f} s with it (the trace's export included); "
+            f"trace.json {size} bytes, {n_events} events, {n_kernels} kernel "
+            f"events, K1 {k1}; parsed in {parse_s:.2f} s (attempt {attempt})")
+        if n_kernels and all(k1.values()):
+            return {"plain_s": plain_s, "profiled_s": profiled_s, "bytes": size,
+                    "kernel_events": n_kernels}
+    raise AssertionError(f"[{tag}] {what}: no trace with K1's kernel events")
+
+
+def write_pw3d_sequence(root, height=240, width=320, seed=8):
+    """A 3DPW sequence in the official layout (sequenceFiles/test/*.pkl,
+    imageFiles/<sequence>/image_NNNNN.jpg): 2 people, male and female, over
+    3 frames, the second person's frame 1 without a valid camera pose;
+    small random poses about an upright body, a moving camera 6 m away
+    (500 px focal length) and smooth synthetic jpgs.
+
+    :return: the sequence's name
+    """
+    import pickle
+    import cv2
+    seq = "downtown_synthetic_00"
+    rng = np.random.RandomState(seed)
+    frames = 3
+    poses = [rng.randn(frames, 72) * 0.2 for _ in range(2)]
+    for p in poses:
+        p[:, :3] = [np.pi, 0.0, 0.0] + 0.1 * rng.randn(frames, 3)
+    cam_poses = np.tile(np.eye(4), (frames, 1, 1))
+    for f in range(frames):
+        cam_poses[f, :3, :3] = cv2.Rodrigues(np.array([0.02, 0.05 * f, 0.01]))[0]
+        cam_poses[f, :3, 3] = [0.05 * f, 0.1, 6.0]
+    data = {
+        "sequence": seq,
+        "poses": poses,
+        "betas": [rng.randn(16) * 0.5 for _ in range(2)],
+        "trans": [np.c_[[-0.6, 0.6][i] + 0.02 * np.arange(frames),
+                        np.zeros(frames), np.zeros(frames)] for i in range(2)],
+        "cam_poses": cam_poses,
+        "cam_intrinsics": np.array([[500.0, 0.0, width / 2],
+                                    [0.0, 500.0, height / 2], [0.0, 0.0, 1.0]]),
+        "genders": ["m", "f"],
+        "campose_valid": [np.ones(frames), np.array([1.0, 0.0, 1.0])],
+    }
+    os.makedirs(os.path.join(root, "sequenceFiles", "test"))
+    with open(os.path.join(root, "sequenceFiles", "test", f"{seq}.pkl"), "wb") as f:
+        pickle.dump(data, f, protocol=2)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    os.makedirs(os.path.join(root, "imageFiles", seq))
+    for f in range(frames):
+        img = np.stack([xx * 0.6 + 20 * f, yy * 0.8,
+                        100 + 60 * np.sin(xx / 40.0 + yy / 50.0 + f)], axis=-1)
+        cv2.imwrite(os.path.join(root, "imageFiles", seq, f"image_{f:05d}.jpg"),
+                    np.clip(img, 0, 255).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_QUALITY, 95])
+    return seq
+
+
+def pw3d_card_vs_cpu(tag, workdir, device):
+    """pw3d_eval_extract on a synthetic sequence (write_pw3d_sequence) on
+    the card and on the CPU, each with synthetic SMPL of seeds 0 (male) and
+    1 (female): names and genders equal, centres and sizes within
+    PW3D_PX_TOL px, body poses and shapes within PW3D_POSE_TOL, and the
+    global orientations (so3_log of the camera-composed rotation, near pi
+    for an upright person) within log_map_tolerance."""
+    from hierarchicalprobabilistic3dhuman_torch.data.pw3d_preprocess import (
+        pw3d_eval_extract)
+    from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
+    root = os.path.join(workdir, "3dpw_raw")
+    write_pw3d_sequence(root)
+    out = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        path = os.path.join(root, f"test_{name}")
+        os.makedirs(os.path.join(path, "cropped_frames"))
+        models = {"m": SMPL.synthetic(dev, seed=0), "f": SMPL.synthetic(dev, seed=1)}
+        with contextlib.redirect_stdout(io.StringIO()):
+            pw3d_eval_extract(root, path, smpl_models=models, device=dev)
+        out[name] = np.load(os.path.join(path, "3dpw_test.npz"))
+    card, cpu = out["card"], out["cpu"]
+    same = (list(card["imgname"]) == list(cpu["imgname"])
+            and list(card["gender"]) == list(cpu["gender"]))
+    errs = {k: float(np.abs(card[k] - cpu[k]).max())
+            for k in ("center", "wh", "shape")}
+    errs["body_pose"] = float(np.abs(card["pose"][:, 3:] - cpu["pose"][:, 3:]).max())
+    glob = np.abs(card["pose"][:, :3] - cpu["pose"][:, :3]).max(axis=1)
+    glob_tol = log_map_tolerance(cpu["pose"][:, :3].astype(np.float64))
+    log(f"[{tag}] pw3d_eval_extract card vs CPU on {len(cpu['imgname'])} "
+        f"frames of 2 people: names and genders equal {same}; max abs diffs "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tol {PW3D_PX_TOL} px, "
+        f"{PW3D_POSE_TOL}); global orientations {[f'{g:.2e}' for g in glob]} "
+        f"rad at angles {[f'{t:.4f}' for t in np.linalg.norm(cpu['pose'][:, :3], axis=1)]} "
+        f"(tol {[f'{t:.2e}' for t in glob_tol]})")
+    if (not same or len(cpu["imgname"]) != 5
+            or max(errs["center"], errs["wh"]) > PW3D_PX_TOL
+            or max(errs["body_pose"], errs["shape"]) > PW3D_POSE_TOL
+            or (glob > glob_tol).any()):
+        raise AssertionError(f"[{tag}] pw3d_eval_extract on the card disagrees "
+                             f"with the CPU")
+
+
+def native_timings(tag, device, store_dir, readings):
+    """The input pipeline at B = 72 from the stores beside the fallback
+    dataset: the sampler's batch ms (2 threads, median of 20 after the
+    queue's first 4), the upload of a packed and of a fallback batch (in
+    turns, median of 5 each), and per stage the train step fed from each
+    (upload, step and loss read, host clock ending in a sync; in turns,
+    median of 5 each after a warm-up)."""
+    from hierarchicalprobabilistic3dhuman_torch.data.native_loader import (
+        NativeBatchSampler)
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        TrainStep, batch_to_device)
+    from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
+    cfg = train_cfg()
+    B = cfg.TRAIN.BATCH_SIZE
+    sampler = NativeBatchSampler(store_paths(store_dir), B, n_threads=2, seed=0)
+    try:
+        waits = []
+        for _ in range(24):
+            t0 = time.perf_counter()
+            fields = sampler.next()
+            waits.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        sampler.close()
+    packed = dict(zip(("pose", "texture", "background"), fields))
+    fallback = train_batch(B, cfg.DATA.PROXY_REP_SIZE, seed=3)
+    hosts = {"fallback": fallback, "packed": packed}
+    nbytes = {k: sum(v[f].nbytes for f in ("pose", "texture", "background"))
+              for k, v in hosts.items()}
+    readings["batch_ms"] = statistics.median(waits[4:])
+    log(f"[{tag}] NativeBatchSampler, B={B}, 2 threads: a batch "
+        f"({nbytes['packed']} bytes) in median {readings['batch_ms']:.3f} ms "
+        f"of 20 (the queue's first 4: {[round(t, 3) for t in waits[:4]]} ms)")
+
+    uploads = {k: [] for k in hosts}
+    for i in range(6):
+        for k in (("fallback", "packed") if i % 2 else ("packed", "fallback")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch_to_device(hosts[k], device)
+            torch.cuda.synchronize()
+            uploads[k].append((time.perf_counter() - t0) * 1e3)
+    readings["upload_ms"] = {k: statistics.median(v[1:]) for k, v in uploads.items()}
+    log(f"[{tag}] upload of a loader batch (pinned, then copied), median of "
+        f"5: packed {readings['upload_ms']['packed']:.3f} ms "
+        f"({nbytes['packed']} bytes), fallback "
+        f"{readings['upload_ms']['fallback']:.3f} ms ({nbytes['fallback']} bytes)")
+
+    model, smpl, renderer, edge = train_parts(device, cfg)
+    optimizer = torch.optim.Adam(model.parameters(), lr=cfg.TRAIN.LR,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    draws = Draws(torch.Generator(device=device).manual_seed(0))
+    readings["img_s"] = {}
+    for stage in (1, 2):
+        metrics = TRAIN_METRICS + (["joints2Dsamples-L2E"] if stage == 2 else [])
+        step = TrainStep(model, cfg, smpl, renderer, edge,
+                         getattr(cfg.LOSS, f"STAGE{stage}"), optimizer,
+                         train=True, metrics_to_track=metrics)
+        walls = {k: [] for k in hosts}
+        for i in range(6):
+            for k in (("fallback", "packed") if i % 2 else ("packed", "fallback")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _, _ = step(draws, *batch_to_device(hosts[k], device))
+                float(loss)
+                torch.cuda.synchronize()
+                walls[k].append((time.perf_counter() - t0) * 1e3)
+        rates = {k: B / statistics.median(v[1:]) * 1e3 for k, v in walls.items()}
+        readings["img_s"][f"stage{stage}"] = rates
+        log(f"[{tag}] stage {stage} train step at B={B}, upload included: "
+            f"packed {rates['packed']:.2f} img/s (steps "
+            f"{[round(t, 2) for t in walls['packed']]} ms), fallback "
+            f"{rates['fallback']:.2f} img/s (steps "
+            f"{[round(t, 2) for t in walls['fallback']]} ms)")
+
+
+def phase_native(workdir, device):
+    """Phase 9: the training data path (see the module docstring).
+
+    :return: dict of the readings for the kernels line
+    """
+    from hierarchicalprobabilistic3dhuman_torch.cli.evaluate import main as eval_main
+    from hierarchicalprobabilistic3dhuman_torch.cli.train import main as train_main
+    from hierarchicalprobabilistic3dhuman_torch.data.native_loader import (
+        build_sampler)
+    t0 = time.perf_counter()
+    readings = {"launches": {}}
+
+    def lap(tag):
+        nonlocal t0
+        log(f"[{tag}] took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    # (a) sources in the real files' shapes, packed per split.
+    t_build = time.perf_counter()
+    lib = build_sampler()
+    log(f"[phase 9a] sampler built with g++ in "
+        f"{time.perf_counter() - t_build:.1f} s: {os.path.relpath(lib, REPO)}")
+    stores = os.path.join(workdir, "native")
+    wh = train_cfg().DATA.PROXY_REP_SIZE
+    sources = {}
+    for i, split in enumerate(("train", "val")):
+        t_src = time.perf_counter()
+        sources[split] = write_train_sources(
+            os.path.join(workdir, f"train_files_{split}"), NATIVE_POSES[split],
+            *NATIVE_TEXTURES, NATIVE_BACKGROUNDS[split], seed=i)
+        t_pack = time.perf_counter()
+        sizes = pack_split(os.path.join(stores, split), sources[split], wh)
+        log(f"[phase 9a] {split}: {NATIVE_POSES[split]} poses, "
+            f"{sum(NATIVE_TEXTURES)} atlases, {NATIVE_BACKGROUNDS[split]} "
+            f"backgrounds written in {t_pack - t_src:.1f} s, packed in "
+            f"{time.perf_counter() - t_pack:.1f} s: {sizes} bytes")
+    lap("phase 9a")
+
+    # (b) two epochs from the stores, then both kernels held to their plain
+    # versions on the tables of the run's last render.
+    exp = os.path.join(workdir, "train_native")
+    with recording_renderers() as made:
+        _, readings["launches"]["train_native_2_epochs"] = run_path(
+            "phase 9b", "run_train_torch.py -O LOSS.STAGE_CHANGE_EPOCH 1 "
+            "--num_epochs 2 --native_data_dir (B=72, 256^2)",
+            lambda: train_main(["-E", exp, "-O", "LOSS.STAGE_CHANGE_EPOCH", "1",
+                                "--num_epochs", "2", "--native_data_dir", stores]),
+            expect=2 * TRAIN_STEPS_A_EPOCH)
+    check_experiment("phase 9b", exp, epochs=2)
+    (recorder,) = made
+    texels = tuple(recorder.last[2].shape)
+    log(f"[phase 9b] the last render's textures: {texels} (per-vertex texels "
+        f"from the store)")
+    if texels != (experiment_cfg(exp).TRAIN.BATCH_SIZE, 7829, 3):
+        raise AssertionError("[phase 9b] the render did not take the store's texels")
+    scene = recorder.scene()
+    covered, readings["attr_err"], readings["box_err"], _ = hold_to_plain(
+        "phase 9b", "train_native", scene)
+    lap("phase 9b")
+
+    # (c) the sampler built on this machine.
+    check_sampler("phase 9c", os.path.join(stores, "train"))
+    lap("phase 9c")
+
+    # (d) --profile_dir on training (stores of 72 records a split) and on
+    # the SSP-3D evaluation of phase 6's folder.
+    small = os.path.join(workdir, "native_small")
+    for split in ("train", "val"):
+        poses = os.path.join(workdir, f"poses_{split}_{PROFILE_POSES}.npz")
+        with np.load(sources[split]["poses"]) as data:
+            np.savez(poses, fnames=data["fnames"][:PROFILE_POSES],
+                     poses=data["poses"][:PROFILE_POSES])
+        pack_split(os.path.join(small, split), dict(sources[split], poses=poses), wh)
+    readings["profile"] = {
+        "train": profiled_runs(
+            "phase 9d", f"run_train_torch.py --native_data_dir, 1 epoch of "
+            f"{PROFILE_POSES} train + {PROFILE_POSES} val poses", train_main,
+            lambda i: ["-E", os.path.join(workdir, f"train_profiled_{i}"),
+                       "--num_epochs", "1", "--native_data_dir", small],
+            os.path.join(workdir, "profile_train")),
+        "eval": profiled_runs(
+            "phase 9d", f"run_evaluate_torch.py --dataset ssp3d --batch_size "
+            f"{EVAL_BATCH} on phase 6's folder", eval_main,
+            lambda i: eval_argv("ssp3d", os.path.join(workdir, "ssp3d"),
+                                os.path.join(workdir, "model.tar"),
+                                os.path.join(workdir, f"eval_profiled_{i}"),
+                                EVAL_BATCH, "cuda"),
+            os.path.join(workdir, "profile_eval"))}
+    lap("phase 9d")
+
+    # (e) the offline 3DPW preprocessing, card against CPU.
+    pw3d_card_vs_cpu("phase 9e", workdir, device)
+    lap("phase 9e")
+
+    # (f) timings.
+    log(f"[phase 9f] on {card_line()}")
+    native_timings("phase 9f", device, os.path.join(stores, "train"), readings)
+    readings["kernel"] = time_rasterizer("phase 9f", "train_native", scene, covered)
+    lap("phase 9f")
+    return readings
+
+
 def time_face_boxes_plain(scene):
     """face_boxes' plain version on a scene's faces, median of 5 x 20."""
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
@@ -2563,6 +3048,7 @@ def main():
         evaluation = timed_phase("phase 6", phase_eval, workdir, device)
         training = timed_phase("phase 7", phase_train, workdir, device)
         resnet50 = timed_phase("phase 8", phase_resnet50, workdir, device)
+        native = timed_phase("phase 9", phase_native, workdir, device)
 
     boxes = timing["face_boxes"]
     path_launches = {"per_image_3_photos": launches,
@@ -2571,7 +3057,8 @@ def main():
                      **evaluation["launches"],
                      "train_2_epochs": training["launches"],
                      "train_resume_1_epoch": training["resume_launches"],
-                     **resnet50["launches"]}
+                     **resnet50["launches"],
+                     **native["launches"]}
     kernels = [{
         "name": "rasterize",
         "route": "cuda",
@@ -2579,7 +3066,8 @@ def main():
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:240",
         "launches": launches["rasterize"],
         "max_abs_err": max(attr_err, batched["attr_err"], evaluation["attr_err"],
-                           training["attr_err"], resnet50["attr_err"]),
+                           training["attr_err"], resnet50["attr_err"],
+                           native["attr_err"]),
         "ms": timing["predict"]["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["predict"]["bound_ms"],
@@ -2594,6 +3082,9 @@ def main():
         "ms_train_resnet50": resnet50["kernel"]["kernel_ms"],
         "bound_ms_train_resnet50": resnet50["kernel"]["bound_ms"],
         "bound_by_train_resnet50": resnet50["kernel"]["bound_by"],
+        "ms_train_native": native["kernel"]["kernel_ms"],
+        "bound_ms_train_native": native["kernel"]["bound_ms"],
+        "bound_by_train_native": native["kernel"]["bound_by"],
         "ms_batched": batched["kernels"]["batched"]["kernel_ms"],
         "bound_ms_batched": batched["kernels"]["batched"]["bound_ms"],
         "bound_by_batched": batched["kernels"]["batched"]["bound_by"],
@@ -2615,7 +3106,8 @@ def main():
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:97",
         "launches": launches["face_boxes"],
         "max_abs_err": max(box_err, batched["box_err"], evaluation["box_err"],
-                           training["box_err"], resnet50["box_err"]),
+                           training["box_err"], resnet50["box_err"],
+                           native["box_err"]),
         "ms": boxes["predict"]["kernel_ms"],
         "plain_ms": boxes["plain_ms"],
         "bound_ms": boxes["predict"]["bound_ms"],
@@ -2638,7 +3130,8 @@ def main():
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
     for tag, readings in (("phase 5", batched), ("phase 6", evaluation),
-                          ("phase 7", training), ("phase 8", resnet50)):
+                          ("phase 7", training), ("phase 8", resnet50),
+                          ("phase 9", native)):
         log(f"[{tag}] readings " + json.dumps(
             {k: v for k, v in readings.items()
              if k not in ("kernels", "face_boxes", "launches", "kernel")}))

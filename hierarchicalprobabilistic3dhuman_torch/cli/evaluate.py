@@ -12,10 +12,10 @@ package's flax variables file (told apart by the content) or random
 weights, and --svd_impl auto taking the LAPACK-sign SVD exactly for a
 reference checkpoint. Added: --device (default cuda; a run that asks for
 cuda and finds none fails). `lapack_callback` is numpy's sgesdd on a host
-copy on every device: it is never swapped for `lapack`. Not ported yet,
-and refused when given: more than one device (--num_devices > 1,
---sample_parallel > 1, parallel/) and --profile_dir
-(runtime/profiling.py).
+copy on every device: it is never swapped for `lapack`. --profile_dir DIR
+writes a torch.profiler Chrome trace of the evaluation to DIR/trace.json.
+Not ported yet, and refused when given: more than one device
+(--num_devices > 1, --sample_parallel > 1, parallel/).
 """
 
 import argparse
@@ -33,9 +33,6 @@ def _refuse_unported(args):
         raise NotImplementedError(
             f"--sample_parallel {args.sample_parallel}: sharding the samples "
             "across devices (parallel/mesh.py) is not ported yet")
-    if args.profile_dir is not None:
-        raise NotImplementedError(
-            "--profile_dir: profiling (runtime/profiling.py) is not ported yet")
 
 
 def select_dataset(args, pose_shape_cfg):
@@ -175,7 +172,8 @@ def build_parser():
                         help="Size of the sample axis of a device mesh; the "
                              "port has no mesh, more than 1 is refused.")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="Not ported yet: refused.")
+                        help="Write a torch.profiler Chrome trace of "
+                             "evaluation to DIR/trace.json.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cuda' (default) fails if there "
                              "is no card, 'cpu' runs the plain versions.")
@@ -183,7 +181,10 @@ def build_parser():
 
 
 def main(argv=None):
-    return run_evaluate(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import trace
+    with trace(args.profile_dir, args.device):
+        return run_evaluate(args)
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 
 python run_train_torch.py -E experiments/exp_001 [-O TRAIN.BATCH_SIZE 8 ...] [-R 20]
 python run_train_torch.py -E <dir> --device cpu -O DATA.PROXY_REP_SIZE 32 TRAIN.BATCH_SIZE 2
+python run_train_torch.py -E <dir> --native_data_dir train_files/native [--profile_dir <dir>]
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/cli/train.py
 (resolve_encoder_precision :16, run_train :45, build_parser :224). The
@@ -12,7 +13,13 @@ experiment directory has the reference's layout:
 Without the training files (AMASS/H36M poses, textures, LSUN backgrounds)
 the datasets fall back to OnTheFlySMPLTrainDataset.synthetic(), and without
 the licensed SMPL files the model to SMPL.synthetic(), as in the JAX
-package. MODEL.NUM_RESNET_LAYERS (-O) picks ResNet-18 or ResNet-50. The
+package. --native_data_dir DIR trains from stores packed by
+data/pack_training_stores.py (DIR/train and DIR/val where they exist,
+else DIR for both), read by the C++ sampler of data/native_loader.py (the
+stores' record counts may differ; an epoch is the poses store's count over
+the batch size); no dataset is built then. --profile_dir DIR writes a
+torch.profiler Chrome trace of the run to DIR/trace.json.
+MODEL.NUM_RESNET_LAYERS (-O) picks ResNet-18 or ResNet-50. The
 checkpoints it writes are the reference's torch dicts; a port-trained
 predictor was trained on the Jacobi SVD's signs, so evaluate it with
 --svd_impl jacobi. -R N resumes from epoch_{N:03d}.tar in either layout,
@@ -23,7 +30,7 @@ encoder_precision.txt too) resumes here. Added: --device (default cuda; a
 run that asks for cuda and finds none fails). Not ported yet, and refused
 when given: more than one device or process (--num_devices > 1,
 --sample_parallel > 1, --coordinator_address, --num_processes,
---process_id), the native loader (--native_data_dir) and --profile_dir.
+--process_id).
 """
 
 import argparse
@@ -73,13 +80,6 @@ def _refuse_unported(args):
             raise NotImplementedError(
                 f"--{flag}: multi-process training (parallel/mesh.py's "
                 "distributed_init) is not ported yet")
-    if args.native_data_dir is not None:
-        raise NotImplementedError(
-            "--native_data_dir: the native loader (data/native_loader.py, "
-            "native/batch_sampler.cpp) is not ported yet")
-    if args.profile_dir is not None:
-        raise NotImplementedError(
-            "--profile_dir: profiling (runtime/profiling.py) is not ported yet")
 
 
 def build_model_and_optimizer(pose_shape_cfg, device, rng_seed=0,
@@ -110,6 +110,27 @@ def build_model_and_optimizer(pose_shape_cfg, device, rng_seed=0,
         model.load_state_dict(checkpoint["model_state_dict"])
         optimizer.load_state_dict(checkpoint["optimiser_state_dict"])
     return model, optimizer, checkpoint
+
+
+def native_loaders(native_data_dir, batch_size, rng_seed):
+    """NativeTrainLoaders of the train and val stores under
+    `native_data_dir` (its train/ and val/ where they exist, else the
+    directory itself for both), seeded rng_seed and rng_seed + 1 (JAX's
+    cli/train.py:184-202)."""
+    from hierarchicalprobabilistic3dhuman_torch.data.native_loader import (
+        NativeTrainLoader)
+
+    def store_dir(split):
+        sub = os.path.join(native_data_dir, split)
+        return sub if os.path.isdir(sub) else native_data_dir
+
+    train = NativeTrainLoader(store_dir("train"), batch_size, seed=rng_seed)
+    try:
+        val = NativeTrainLoader(store_dir("val"), batch_size, seed=rng_seed + 1)
+    except BaseException:
+        train.close()
+        raise
+    return {"train": train, "val": val}
 
 
 def run_train(args):
@@ -159,28 +180,31 @@ def run_train(args):
                                   resuming=False)
         print(f"\nSaved config to {cfg_save_path}")
 
-    # Datasets (reference :54-69); the synthetic fallback without the files.
     D = pose_shape_cfg.DATA.PROXY_REP_SIZE
-    try:
-        train_dataset = OnTheFlySMPLTrainDataset(
-            poses_path=paths.TRAIN_POSES_PATH,
-            textures_path=paths.TRAIN_TEXTURES_PATH,
-            backgrounds_dir_path=paths.TRAIN_BACKGROUNDS_PATH,
-            params_from="not_amass", img_wh=D)
-        val_dataset = OnTheFlySMPLTrainDataset(
-            poses_path=paths.VAL_POSES_PATH,
-            textures_path=paths.VAL_TEXTURES_PATH,
-            backgrounds_dir_path=paths.VAL_BACKGROUNDS_PATH,
-            params_from="all", img_wh=D)
-    except (FileNotFoundError, OSError) as e:
-        print(f"WARNING: training data files unavailable ({e}); "
-              f"using synthetic fallback data.")
-        train_dataset = OnTheFlySMPLTrainDataset.synthetic(
-            n=max(pose_shape_cfg.TRAIN.BATCH_SIZE * 4, 64), img_wh=D)
-        val_dataset = OnTheFlySMPLTrainDataset.synthetic(
-            n=max(pose_shape_cfg.TRAIN.BATCH_SIZE * 2, 32), img_wh=D, seed=1)
-    print("Training poses:", len(train_dataset))
-    print("Validation poses:", len(val_dataset))
+    train_dataset = val_dataset = None
+    if args.native_data_dir is None:
+        # Datasets (reference :54-69); the synthetic fallback without the
+        # files.
+        try:
+            train_dataset = OnTheFlySMPLTrainDataset(
+                poses_path=paths.TRAIN_POSES_PATH,
+                textures_path=paths.TRAIN_TEXTURES_PATH,
+                backgrounds_dir_path=paths.TRAIN_BACKGROUNDS_PATH,
+                params_from="not_amass", img_wh=D)
+            val_dataset = OnTheFlySMPLTrainDataset(
+                poses_path=paths.VAL_POSES_PATH,
+                textures_path=paths.VAL_TEXTURES_PATH,
+                backgrounds_dir_path=paths.VAL_BACKGROUNDS_PATH,
+                params_from="all", img_wh=D)
+        except (FileNotFoundError, OSError) as e:
+            print(f"WARNING: training data files unavailable ({e}); "
+                  f"using synthetic fallback data.")
+            train_dataset = OnTheFlySMPLTrainDataset.synthetic(
+                n=max(pose_shape_cfg.TRAIN.BATCH_SIZE * 4, 64), img_wh=D)
+            val_dataset = OnTheFlySMPLTrainDataset.synthetic(
+                n=max(pose_shape_cfg.TRAIN.BATCH_SIZE * 2, 32), img_wh=D, seed=1)
+        print("Training poses:", len(train_dataset))
+        print("Validation poses:", len(val_dataset))
 
     # Models (reference :72-92)
     edge_detect_model = CannyEdgeDetector(
@@ -206,22 +230,36 @@ def run_train(args):
     metrics = ['PVE', 'PVE-SC', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC', 'MPJPE-PA',
                'joints2D-L2E']
 
-    return train_pose_mf_shape_gaussian_net(
-        pose_shape_model=pose_shape_model,
-        pose_shape_cfg=pose_shape_cfg,
-        smpl_model=smpl_model,
-        edge_detect_model=edge_detect_model,
-        renderer=renderer,
-        train_dataset=train_dataset,
-        val_dataset=val_dataset,
-        optimizer=optimizer,
-        metrics=metrics,
-        model_save_dir=model_save_dir,
-        logs_save_path=logs_save_path,
-        device=device,
-        checkpoint=checkpoint,
-        rng_seed=args.rng_seed,
-        num_epochs=args.num_epochs)
+    loaders = None
+    if args.native_data_dir is not None:
+        # The native C++ input pipeline: batches assembled by mmap+memcpy
+        # on C++ threads from packed stores, uint8 textures and backgrounds
+        # end to end (normalised on the device).
+        loaders = native_loaders(args.native_data_dir,
+                                 pose_shape_cfg.TRAIN.BATCH_SIZE, args.rng_seed)
+        print(f"Native input pipeline: {args.native_data_dir} "
+              f"({loaders['train'].steps_per_epoch} train steps/epoch)")
+    try:
+        return train_pose_mf_shape_gaussian_net(
+            pose_shape_model=pose_shape_model,
+            pose_shape_cfg=pose_shape_cfg,
+            smpl_model=smpl_model,
+            edge_detect_model=edge_detect_model,
+            renderer=renderer,
+            train_dataset=train_dataset,
+            val_dataset=val_dataset,
+            optimizer=optimizer,
+            metrics=metrics,
+            model_save_dir=model_save_dir,
+            logs_save_path=logs_save_path,
+            device=device,
+            checkpoint=checkpoint,
+            rng_seed=args.rng_seed,
+            num_epochs=args.num_epochs,
+            loaders=loaders)
+    finally:
+        for loader in (loaders or {}).values():
+            loader.close()
 
 
 def build_parser():
@@ -241,7 +279,9 @@ def build_parser():
     parser.add_argument("--sample_parallel", type=int, default=1,
                         help="Only 1 is ported (more raise).")
     parser.add_argument("--native_data_dir", type=str, default=None,
-                        help="The native loader is not ported (raises).")
+                        help="Directory of packed .bin stores (see "
+                             "data/pack_training_stores.py); enables the "
+                             "C++ batch-assembly input pipeline.")
     parser.add_argument("--coordinator_address", type=str, default=None,
                         help="Multi-process training is not ported (raises).")
     parser.add_argument("--num_processes", type=int, default=None)
@@ -251,14 +291,20 @@ def build_parser():
                              "(parameters, BatchNorm and head stay float32; "
                              "checkpoints unchanged).")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="Profiling is not ported (raises).")
+                        help="Write a torch.profiler Chrome trace of "
+                             "training to DIR/trace.json (every event is "
+                             "held until the run ends: keep such runs "
+                             "short).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; fails without a card) or cpu.")
     return parser
 
 
 def main(argv=None):
-    return run_train(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import trace
+    with trace(args.profile_dir, args.device):
+        return run_train(args)
 
 
 if __name__ == "__main__":

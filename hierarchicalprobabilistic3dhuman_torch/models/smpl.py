@@ -290,12 +290,13 @@ def vertices2joints(J_regressor, vertices):
 
 
 def smpl_forward(params, betas=None, body_pose=None, global_orient=None,
-                 pose2rot=True, batch_size=None):
+                 transl=None, pose2rot=True, batch_size=None):
     """Full SMPL forward with the reference wrapper's 90-joint output.
 
       - pose2rot=True: body_pose (B, 69) and global_orient (B, 3) axis-angle
       - pose2rot=False: body_pose (B, 23, 3, 3), global_orient (B, 1, 3, 3)
       - any argument may be None -> neutral (zeros / identity)
+      - transl (B, 3), if given, is added to the vertices and joints
 
     :return: dict with 'vertices' (B, 6890, 3) and 'joints' (B, 90, 3).
     """
@@ -310,6 +311,9 @@ def smpl_forward(params, betas=None, body_pose=None, global_orient=None,
     verts, kin_joints = lbs(params, betas, _rotmats(params, B, body_pose,
                                                     global_orient, pose2rot))
     joints = _joints90(params, verts, kin_joints)
+    if transl is not None:
+        verts = verts + transl[:, None, :]
+        joints = joints + transl[:, None, :]
     return {"vertices": verts, "joints": joints}
 
 
@@ -453,7 +457,7 @@ class SMPL:
         return self.params.faces
 
     def __call__(self, betas=None, body_pose=None, global_orient=None,
-                 pose2rot=True, batch_size=None):
+                 transl=None, pose2rot=True, batch_size=None):
         return smpl_forward(self.params, betas=betas, body_pose=body_pose,
-                            global_orient=global_orient, pose2rot=pose2rot,
-                            batch_size=batch_size)
+                            global_orient=global_orient, transl=transl,
+                            pose2rot=pose2rot, batch_size=batch_size)

@@ -1,10 +1,14 @@
 """Rotation representations and the SO(3) exponential map, in torch.
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/utils/rotation_utils.py
-(rot6d_to_rotmat :20, quat_to_rotmat :53, so3_exp :81,
+(rot6d_to_rotmat :20, rotmat_to_rot6d :41, quat_to_rotmat :53, so3_exp :81,
+so3_log :107, theta2_sixth :154, aa_rotate_rotmats :159,
 aa_rotate_translate_points :179, batch_rodrigues :196), with the same
-formulas and guards. All functions accept arbitrary leading batch dims.
+formulas, guards and branch selection. All functions accept arbitrary
+leading batch dims.
 """
+
+import math
 
 import torch
 
@@ -32,6 +36,18 @@ def rot6d_to_rotmat(x):
     b2 = _normalise(a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-1)
+
+
+def rotmat_to_rot6d(R, stack_columns=False):
+    """Rotation matrix -> 6D representation (reference :97-110).
+
+    stack_columns=False (default) returns [R11, R12, R21, R22, R31, R32]
+    (the exact inverse layout of rot6d_to_rotmat); True returns the two
+    columns stacked [col0; col1].
+    """
+    if stack_columns:
+        return torch.cat([R[..., :, 0], R[..., :, 1]], dim=-1)
+    return R[..., :, :2].reshape(R.shape[:-2] + (6,))
 
 
 def quat_to_rotmat(quat):
@@ -85,6 +101,79 @@ def so3_exp(log_rot):
     return (eye
             + sin_t_over_t[..., None, None] * K
             + one_minus_cos_over_t2[..., None, None] * KK)
+
+
+def so3_log(R):
+    """Rotation matrix -> axis-angle vector (SO(3) log map).
+
+    Three branches, selected as in the JAX package: theta < 1e-4 takes
+    w (0.5 + theta^2 / 12) from the antisymmetric part w; theta > pi - 1e-3
+    takes the normalised column of R + I at the largest diagonal entry,
+    signed by the diagonal-based axis, times theta; the rest w theta /
+    (2 sin theta).
+
+    :param R: (..., 3, 3)
+    :return: (..., 3)
+    """
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
+    theta = torch.arccos(cos_theta)
+
+    # Generic branch: axis from the antisymmetric part.
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_theta = torch.sin(theta)
+    small = theta < 1e-4
+    near_pi = theta > math.pi - 1e-3
+    safe_sin = torch.where(small | near_pi, torch.ones_like(sin_theta), sin_theta)
+    generic = w * (theta / (2.0 * safe_sin))[..., None]
+
+    # Small-angle branch: log(R) ~ (R - R^T)/2 vectorised, i.e. w / 2.
+    small_branch = w * (0.5 + theta2_sixth(theta))[..., None]
+
+    # Near-pi branch: the column of R + I at the largest diagonal entry,
+    # its sign set by the diagonal-based axis sqrt((diag + 1) / 2).
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp((diag + 1.0) / 2.0, 0.0, 1.0))
+    k = torch.argmax(diag, dim=-1)
+    Rp = R + torch.eye(3, dtype=R.dtype, device=R.device)
+    col = torch.gather(Rp, -1, k[..., None, None].expand(k.shape + (3, 1)))[..., 0]
+    col_norm = _normalise(col)
+    signed_axis = torch.where(torch.sum(col_norm * axis, dim=-1, keepdim=True) < 0,
+                              -col_norm, col_norm)
+    pi_branch = signed_axis * theta[..., None]
+
+    return torch.where(small[..., None], small_branch,
+                       torch.where(near_pi[..., None], pi_branch, generic))
+
+
+def theta2_sixth(theta):
+    """Second-order correction term theta^2/12 used in the small-angle log map."""
+    return theta * theta / 12.0
+
+
+def aa_rotate_rotmats(rotmats, axes, angles, rot_mult_order="post"):
+    """Rotate rotation matrices about given axis-angles (reference :11-31,
+    :34-58).
+
+    :param rotmats: (B, 3, 3)
+    :param axes: (3,) or (B, 3)
+    :param angles: scalar or (B, 1), radians
+    :param rot_mult_order: "post" (rotmats @ R) or "pre" (R @ rotmats)
+    :return: (rotated_rotvecs (B, 3), rotated_rotmats (B, 3, 3))
+    """
+    if rot_mult_order not in ("pre", "post"):
+        raise ValueError(f"rot_mult_order {rot_mult_order!r}")
+    def tensor(a):
+        return torch.as_tensor(a, dtype=rotmats.dtype, device=rotmats.device)
+
+    r = tensor(axes) * tensor(angles)
+    if r.ndim < 2:
+        r = r[None, :].expand(rotmats.shape[0], 3)
+    R = so3_exp(r)
+    rotated = rotmats @ R if rot_mult_order == "post" else R @ rotmats
+    return so3_log(rotated), rotated
 
 
 def aa_rotate_translate_points(points, axis, angle, translation):

@@ -31,6 +31,7 @@ both stages.
 """
 
 import copy
+import os
 import time
 from functools import partial
 
@@ -190,8 +191,41 @@ def batch():
     return make_batch(D)
 
 
-@pytest.mark.parametrize("stage", [1, 2])
-def test_train_step_matches_jax(batch, stage):
+def packed_batch(batch, store_dir):
+    """A batch from the port's native sampler over stores of `batch`'s
+    poses, backgrounds and its atlases sampled per vertex by the port's
+    pack tool: uint8 (B, 7829, 3) texels in place of the atlases. The
+    sampler runs in sequential mode (NativeTrainLoader's shuffled draws
+    pick records with replacement: 2 of 2 repeat one half the time, and a
+    batch of one pose twice puts the train-mode BatchNorm over two
+    near-equal samples, which on the CPU moved head gradients to 1.95 of
+    the bound below), so the batch holds each record once."""
+    from hierarchicalprobabilistic3dhuman_torch.data.native_loader import (
+        NativeBatchSampler, write_tensor_store)
+    from hierarchicalprobabilistic3dhuman_torch.data.pack_training_stores import (
+        sample_texture_atlas_at_vertices)
+    pose, background, atlases = batch
+    paths = [write_tensor_store(os.path.join(store_dir, f"{name}.bin"), a)
+             for name, a in (("poses", pose), ("backgrounds", background),
+                             ("textures", sample_texture_atlas_at_vertices(atlases)))]
+    sampler = NativeBatchSampler(paths, B, n_threads=1, shuffle=False)
+    try:
+        out = sampler.next()
+    finally:
+        sampler.close()
+    assert out[2].shape == (B, 7829, 3) and out[2].dtype == np.uint8
+    np.testing.assert_array_equal(out[0], pose)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("stage,texels", [pytest.param(1, False, id="1"),
+                                          pytest.param(2, False, id="2"),
+                                          pytest.param(1, True, id="1-packed")])
+def test_train_step_matches_jax(batch, tmp_path, stage, texels):
+    """The third case feeds both steps a packed batch (per-vertex texels
+    from the port's native sampler), held by the same rule."""
+    if texels:
+        batch = packed_batch(batch, str(tmp_path))
     check_step_matches_jax(batch, stage, layers=18, size=D)
 
 
