@@ -113,8 +113,34 @@ Phases (any failure exits non-zero before the final line):
      pw3d_eval_extract on a synthetic 2-person sequence, card vs CPU; (f)
      the sampler's batch ms, the upload of a packed and of a fallback
      batch, train img/s per stage fed from each, and K1 on 9b's tables
-     beside its bound.
+     beside its bound;
+ 10. the multi-device paths (parallel/) at full width: (a) the CLIs'
+     multi-process path on this card at world 1 through NCCL,
+     `run_train_torch.py --coordinator_address 127.0.0.1:<port>
+     --num_processes 1 --process_id 0` for 2 epochs and `-R 0`, and
+     run_evaluate_torch.py's run with the same flags on phase 6's SSP-3D
+     folder at batch 8, each under deterministic algorithms beside the
+     plain `--num_devices 1` run: checkpoints, Adam's state, log.pkl,
+     metrics and per-frame files bit-equal; (b) two ranks of this script
+     on this card through gloo (deterministic) against one rank: train
+     steps at B = 72 (stages 1 and 2 at data 2, stage 2 at data 1 x
+     sample 2) on the loss, terms and metric sums (1e-5 relative) and
+     every gradient, BatchNorm statistic and weight after Adam (max(1e-5,
+     10 x the tensor's float32 floor)), the SSP-3D eval step at data 2 and
+     at sample 2 (B = 8, 10 samples; frame metrics 1e-5, IOU counts 2e-3),
+     the predict core at sample 2 (N = 50, 25 / 25, 6 views at 512^2;
+     1e-5); both kernels held to their plain versions on rank 0's tables of
+     each path, their launches counted per rank; (c) times on the host
+     clock (median of 5) beside the card's name and power limit: train
+     img/s per stage of the world-1 DDP step and of the plain step, the
+     gradient all-reduce at world 1 over NCCL at ResNet-18's and
+     ResNet-50's parameter counts, and the gloo ranks' step and all-reduce
+     (a correctness run on one card, not a scaling number).
      Each phase logs its wall time.
+
+`python3 chip_smoke.py --rank SPEC RANK` is one rank of a group that
+run_ranks starts (10b, and the CPU tests' gloo groups): it reads SPEC,
+joins the group, runs one scenario and saves its result beside SPEC.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -409,7 +435,7 @@ class CallRecorder:
 
     def __init__(self, renderer):
         self.renderer = renderer
-        self.faces = renderer.faces
+        self.faces = None if renderer is None else renderer.faces
 
     def __call__(self, vertices, cam_t=None, textures=None, **kwargs):
         self.last = (vertices.detach(), cam_t.detach(), textures.detach())
@@ -3009,6 +3035,779 @@ def phase_native(workdir, device):
     return readings
 
 
+# ---- phase 10: the multi-device paths (parallel/) ----
+#
+# The ranks of 10b are processes of this script (`chip_smoke.py --rank
+# SPEC RANK`), which the CPU tests start too (tests/test_torch_sharded_*.py):
+# each joins a gloo or NCCL group, builds a mesh, runs one scenario and
+# saves what the comparison reads.
+
+PAR_FLOOR = 1e-5            # the rule: max(PAR_FLOOR, 10 x float32 floor)
+PAR_EVAL_METRICS = ["PVE", "PVE-PA", "PVE-T-SC", "MPJPE-SC", "joints2D-L2E",
+                    "silhouette-IOU", "PVE_samples_min", "MPJPE-PA_samples_min",
+                    "joints2Dsamples-L2E", "silhouettesamples-IOU"]
+
+
+def to_cpu(tree):
+    """Tensors (in nested dicts and lists) detached onto the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_cpu(v) for v in tree]
+    return tree.detach().cpu() if torch.is_tensor(tree) else tree
+
+
+class RecordingAdam(torch.optim.Adam):
+    """Adam that keeps the gradients it was handed (after DDP's
+    all-reduce), in parameter order."""
+
+    def step(self, closure=None):
+        self.grads = [p.grad.detach().clone()
+                      for g in self.param_groups for p in g["params"]]
+        return super().step(closure)
+
+
+def rel_diff(a, b):
+    """max |a - b| over max |b| (1 where b is all zero and a is not)."""
+    a, b = a.double(), b.double()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    d = float((a - b).abs().max()) if b.numel() else 0.0
+    return d / scale if scale > 0 else (0.0 if d == 0 else 1.0)
+
+
+def check_rank_kernels(name, scene):
+    """On rank 0 of a 10b group: both kernels against their plain versions
+    on a path's tables, and K1's time there beside its bound.
+
+    :return: dict attr_err, box_err, meshes, hw, kernel_ms, bound_ms,
+        bound_by
+    """
+    covered, attr_err, box_err, _ = hold_to_plain("phase 10b", name, scene)
+    return {"attr_err": attr_err, "box_err": box_err,
+            "meshes": int(scene.screen.shape[0]),
+            "hw": list(scene.tables.image_hw),
+            **time_rasterizer("phase 10b", name, scene, covered)}
+
+
+def counted(fn):
+    """fn() with both kernels' launch counts set to 0 just before it and
+    read just after (None off the card).
+
+    :return: fn's result, the counts
+    """
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        face_boxes_cuda, rasterize_packed_cuda)
+    rasterize_packed_cuda.launches = face_boxes_cuda.launches = 0
+    result = fn()
+    if not torch.cuda.is_available():
+        return result, None
+    torch.cuda.synchronize()
+    return result, {"rasterize": rasterize_packed_cuda.launches,
+                    "face_boxes": face_boxes_cuda.launches}
+
+
+class Float64Predictor(torch.nn.Module):
+    """The predictor computed in float64 inside a float32 step: float32
+    input in, outputs rounded to float32 out."""
+
+    def __init__(self, model64):
+        super().__init__()
+        self.model = model64
+
+    def forward(self, x):
+        return {k: v.float() for k, v in self.model(x.double()).items()}
+
+
+def _train_step_run(device, cfg, stage, host_batch, model, mesh, seed,
+                    recorder=None):
+    """The train step of par_train_step on `model` (the predictor, or its
+    Float64Predictor), its render through `recorder` (a CallRecorder of a
+    training renderer) when one is given; returns its loss, terms, sums and
+    Adam's gradients."""
+    from hierarchicalprobabilistic3dhuman_torch.parallel import (
+        make_sharded_train_step)
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        TrainStep, batch_to_device)
+    from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
+    _, smpl, renderer, edge = train_parts(device, cfg)
+    if recorder is not None:
+        recorder.renderer, recorder.faces = renderer, renderer.faces
+        renderer = recorder
+    optimizer = RecordingAdam(model.parameters(), lr=cfg.TRAIN.LR)
+    metrics = TRAIN_METRICS + (["joints2Dsamples-L2E"] if stage == 2 else [])
+    step = TrainStep(model, cfg, smpl, renderer, edge,
+                     cfg.LOSS.STAGE1 if stage == 1 else cfg.LOSS.STAGE2,
+                     optimizer, train=True, metrics_to_track=metrics)
+    if mesh is not None:
+        step = make_sharded_train_step(step, mesh)
+    loss, sums, terms = step(Draws(torch.Generator(device=device).manual_seed(seed)),
+                             *batch_to_device(host_batch, device))
+    return loss, terms, sums, optimizer.grads
+
+
+def _train_state(model, names, grads):
+    return {"grads": dict(zip(names, grads)),
+            "buffers": {n: b for n, b in model.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))},
+            "params": dict(model.named_parameters())}
+
+
+def par_train_step(device, cfg, stage, host_batch, mesh=None, seed=0,
+                   floors=False, check_kernels=False):
+    """One train step of the loss stage `stage` on the global `host_batch`:
+    weights from seed 0, a fresh Adam, draws from `seed`; sharded over
+    `mesh` when one is given.
+
+    :param floors: also return the float32 floors (1 rank): per tensor, the
+        step's gradients, BatchNorm statistics and weights after Adam
+        against those of the same step with the predictor computed in
+        float64 (Float64Predictor), relative to the tensor's largest entry
+    :param check_kernels: hold both kernels to their plain versions on the
+        tables of the step's render (on the card)
+    :return: dict of loss, terms, sums, grads, buffers (BatchNorm running
+        statistics) and params (after Adam), on the CPU; on the card the
+        kernels' launches in the step and, checked, their differences
+    """
+    import copy
+    model = train_parts(device, cfg)[0]
+    names = [n for n, _ in model.named_parameters()]
+    model64 = copy.deepcopy(model).double() if floors else None
+    recorder = CallRecorder(None) if check_kernels else None
+    (loss, terms, sums, grads), launches = counted(lambda: _train_step_run(
+        device, cfg, stage, host_batch, model, mesh, seed, recorder))
+    out = to_cpu({"loss": loss, "terms": terms, "sums": sums, "lr": cfg.TRAIN.LR,
+                  **_train_state(model, names, grads), "launches": launches})
+    if check_kernels:
+        out["kernels"] = {"train_rank": check_rank_kernels("train rank",
+                                                           recorder.scene())}
+    if floors:
+        grads64 = _train_step_run(device, cfg, stage, host_batch,
+                                  Float64Predictor(model64), None, seed)[3]
+        ref = to_cpu(_train_state(model64, names, grads64))
+        out["floors"] = {kind: {n: rel_diff(out[kind][n], r)
+                                for n, r in ref[kind].items()}
+                         for kind in ref}
+    return out
+
+
+def adam_ratio(got, ref, grad, grad_tol, tol, lr):
+    """The largest difference of a weight tensor after Adam's first step
+    over its allowance. The step moves each weight by lr times the sign of
+    its gradient (m / sqrt(v) = g / |g|), so where a gradient lies within
+    the gradients' tolerance of zero its sign is rounding and the weight
+    may move by up to 2 lr more; elsewhere the weight is held to `tol` of
+    the tensor's largest entry, as the other tensors are."""
+    band = grad.abs() <= grad_tol * grad.abs().max()
+    allowed = tol * ref.abs().max() + torch.where(band, 2.0 * lr, 0.0)
+    return float(((got - ref).abs() / allowed).max())
+
+
+def compare_train(tag, ref, got):
+    """A sharded step against the 1-rank one: the loss, its terms and the
+    metric sums within PAR_FLOOR relative; every gradient and BatchNorm
+    statistic per tensor within max(PAR_FLOOR, 10 x its float32 floor) of
+    its largest entry, and every weight after Adam too, but where its
+    gradient is within the gradients' tolerance of zero (adam_ratio).
+
+    :return: the largest difference over its tolerance (<= 1 holds)
+    """
+    ratios = {}
+    for kind in ("terms", "sums"):
+        for k, r in ref[kind].items():
+            ratios[f"{kind}.{k}"] = rel_diff(got[kind][k], r) / PAR_FLOOR
+    ratios["loss"] = rel_diff(got["loss"], ref["loss"]) / PAR_FLOOR
+    worst = {}
+    floors = ref["floors"]
+    for kind in ("grads", "buffers", "params"):
+        for n, r in ref[kind].items():
+            tol = max(PAR_FLOOR, 10 * floors[kind][n])
+            if kind == "params":
+                ratios[f"{kind}.{n}"] = adam_ratio(
+                    got[kind][n].double(), r.double(), ref["grads"][n].double(),
+                    max(PAR_FLOOR, 10 * floors["grads"][n]), tol, ref["lr"])
+            else:
+                ratios[f"{kind}.{n}"] = rel_diff(got[kind][n], r) / tol
+        k = max((key for key in ratios if key.startswith(kind + ".")),
+                key=ratios.get)
+        worst[kind] = f"{k[len(kind) + 1:]} {ratios[k]:.2f}"
+    top = max(ratios, key=ratios.get)
+    log(f"[{tag}] vs 1 rank: loss {float(got['loss']):.7g} vs "
+        f"{float(ref['loss']):.7g}; worst of tolerance: {worst}; overall "
+        f"{top} {ratios[top]:.2f}")
+    return ratios[top]
+
+
+def par_eval_parts(device, cfg, weights=None):
+    """The eval step's models at `cfg`: the predictor (in eval mode, from
+    `weights` or seed 0), synthetic SMPL of the three genders (seeds 0, 1,
+    2), Canny with threshold 0 and the silhouette renderer."""
+    from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
+        build_pose_shape_model)
+    from hierarchicalprobabilistic3dhuman_torch.models.canny_edge_detector import (
+        CannyEdgeDetector)
+    from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
+    model = build_pose_shape_model(cfg, "jacobi")
+    if weights is None:
+        init_weights(model, torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict(weights)
+    smpls = [SMPL.synthetic(device, seed=s) for s in range(3)]
+    return (model.to(device).eval(), smpls, CannyEdgeDetector(device, threshold=0.0),
+            silhouette_renderer(device, cfg.DATA.PROXY_REP_SIZE))
+
+
+def par_eval_step(device, inputs, mesh=None, check_kernels=False):
+    """One eval step on the global batch of `inputs` ({"cfg": overrides,
+    "batch": the step's tensors, "draws": sample_draws' dict, "metrics",
+    "num_samples", "silhouettes", "weights"}), sharded over `mesh` when one
+    is given; the frame metrics on the device.
+
+    :param check_kernels: hold both kernels to their plain versions on the
+        tables of the step's two renders (on the card)
+    :return: the step's outputs on the CPU; on the card with the kernels'
+        launches in the step and, checked, their differences
+    """
+    from hierarchicalprobabilistic3dhuman_torch.configs import (
+        get_pose_shape_cfg_defaults)
+    from hierarchicalprobabilistic3dhuman_torch.evaluate.evaluate_pose_mf_shape_gaussian_net import (
+        make_eval_step)
+    from hierarchicalprobabilistic3dhuman_torch.metrics.metric_sums import (
+        make_eval_frame_metrics_fn)
+    cfg = get_pose_shape_cfg_defaults()
+    cfg.merge_from_list(inputs["cfg"])
+    model, smpls, edge, renderer = par_eval_parts(device, cfg, inputs.get("weights"))
+    silhouettes = renderer
+    if check_kernels:
+        renderer = RecordingRenderer(silhouettes)
+    n = inputs["num_samples"]
+    step = make_eval_step(
+        model, *smpls, edge, cfg, n, True, inputs["silhouettes"], True, renderer,
+        frame_metrics_fn=make_eval_frame_metrics_fn(inputs["metrics"], mesh, n),
+        mesh=mesh)
+    b = inputs["batch"]
+    out, launches = counted(lambda: step(
+        {k: v.to(device) for k, v in inputs["draws"].items()},
+        *(b[k].to(device) for k in ("image", "heatmaps", "pose", "shape",
+                                    "gender", "joints2d", "silhouette"))))
+    out = to_cpu(out)
+    if launches is not None:
+        out["launches"] = launches
+    if check_kernels:
+        wh = cfg.DATA.PROXY_REP_SIZE
+        out["kernels"] = {}
+        for name, (verts, cam_t, scale) in zip(("mode", "samples"), renderer.calls):
+            screen, attrs = silhouettes.raster_inputs(verts, cam_t, scale)
+            out["kernels"][f"eval_rank_{name}"] = check_rank_kernels(
+                f"eval rank {name}", make_scene(screen, silhouettes.faces,
+                                                attrs, (wh, wh)))
+    return out
+
+
+def compare_frames(tag, ref, got, tol=PAR_FLOOR, iou_tol=2e-3):
+    """Frame metrics and per-frame outputs of a sharded eval step against
+    the 1-rank step's, in frame order: relative to each value's largest
+    within `tol`; the IOUs and their counts within `iou_tol` (an edge
+    pixel can move with the last bits of a vertex).
+
+    :return: the largest difference over its tolerance
+    """
+    ratios = {}
+    for k, r in ref["frame_metrics"].items():
+        t = iou_tol if ("IOU" in k or k.startswith("num_")) else tol
+        ratios[k] = rel_diff(got["frame_metrics"][k], r) / t
+    for k, r in ref.items():
+        if k not in ("frame_metrics", "launches", "kernels"):
+            ratios[k] = rel_diff(got[k], r) / tol
+    top = max(ratios, key=ratios.get)
+    log(f"[{tag}] vs 1 rank: {len(ratios)} outputs, worst {top} at "
+        f"{ratios[top]:.2f} of its tolerance")
+    return ratios[top]
+
+
+def par_predict_core(device, inputs, mesh=None, render=False,
+                     check_kernels=False):
+    """The predict core on `inputs` ({"cfg": overrides, "num_samples",
+    "hr", "joints2D", "confs", "seed"}), weights from seed 0, the sampler's
+    draws from a generator of `seed`; its samples split over `mesh`.
+
+    :param check_kernels: hold both kernels to their plain versions on the
+        tables of the 6-view render (on the card, rendering)
+    :return: the uncertainty, the mode and sample meshes (and, rendering,
+        the views) on the CPU; on the card the kernels' launches and,
+        checked, their differences
+    """
+    from hierarchicalprobabilistic3dhuman_torch.configs import (
+        get_pose2d_hrnet_cfg_defaults, get_pose_shape_cfg_defaults)
+    from hierarchicalprobabilistic3dhuman_torch.models.canny_edge_detector import (
+        CannyEdgeDetector)
+    from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
+        make_predict_core)
+    cfg = get_pose_shape_cfg_defaults()
+    cfg.merge_from_list(inputs["cfg"])
+    model, smpls, _, _ = par_eval_parts(device, cfg)
+    renderer = figure_renderer(device, FIGURE_WH) if render else None
+    core = make_predict_core(
+        model, cfg, smpls[0], CannyEdgeDetector(device), renderer,
+        get_pose2d_hrnet_cfg_defaults(),
+        num_uncertainty_samples=inputs["num_samples"], render_vis=render,
+        mesh=mesh)
+    out, launches = counted(lambda: core(
+        inputs["hr"].to(device), inputs["joints2D"].to(device),
+        inputs["confs"].to(device),
+        generator=torch.Generator(device=device).manual_seed(inputs["seed"])))
+    keys = ["per_vertex_3Dvar", "verts_mode", "verts_samples", "joints_samples"]
+    result = to_cpu({k: out[k] for k in keys + (["rgb_views"] if render else [])})
+    if launches is not None:
+        result["launches"] = launches
+    if check_kernels:
+        with torch.inference_mode():
+            scene = core_render_scene(out, smpls[0], renderer)
+        result["kernels"] = {"predict_rank": check_rank_kernels("predict rank",
+                                                                scene)}
+    return result
+
+
+def compare_predict(tag, ref, got, tol=PAR_FLOOR):
+    """The sample-parallel core against the 1-rank core: every output
+    relative to its largest within `tol`."""
+    ratios = {k: rel_diff(got[k], r) / tol for k, r in ref.items()
+              if k not in ("launches", "kernels")}
+    top = max(ratios, key=ratios.get)
+    log(f"[{tag}] vs 1 rank: " + ", ".join(f"{k} {v * tol:.1e}"
+                                           for k, v in ratios.items()))
+    return ratios[top]
+
+
+def rank_train(device, inputs):
+    """Rank scenario: the train steps of inputs["runs"], each (stage,
+    sample_parallel), on one global batch."""
+    from hierarchicalprobabilistic3dhuman_torch.parallel import make_mesh
+    import torch.distributed as dist
+    cfg = train_cfg(inputs["img_wh"], inputs["num_samples"])
+    cfg.merge_from_list(inputs["cfg"])
+    check = inputs.get("check_kernels", False) and dist.get_rank() == 0
+    outs = [par_train_step(device, cfg, stage, inputs["batch"],
+                           make_mesh(sample_parallel=s, device=device),
+                           inputs["seed"], check_kernels=check and i == 0)
+            for i, (stage, s) in enumerate(inputs["runs"])]
+    if inputs.get("timing"):
+        outs[0]["timing"] = gloo_timing(device, cfg, inputs["batch"])
+    return outs
+
+
+def rank_eval(device, inputs):
+    """Rank scenario: the eval step at each sample_parallel of
+    inputs["sample_parallel"]."""
+    import torch.distributed as dist
+    from hierarchicalprobabilistic3dhuman_torch.parallel import make_mesh
+    check = inputs.get("check_kernels", False) and dist.get_rank() == 0
+    return [par_eval_step(device, inputs, make_mesh(sample_parallel=s, device=device),
+                          check_kernels=check and i == 0)
+            for i, s in enumerate(inputs["sample_parallel"])]
+
+
+def rank_predict(device, inputs):
+    """Rank scenario: the predict core with every rank on "sample"."""
+    import torch.distributed as dist
+    from hierarchicalprobabilistic3dhuman_torch.parallel import make_mesh
+    mesh = make_mesh(sample_parallel=dist.get_world_size(), device=device)
+    render = inputs.get("render", False)
+    return [par_predict_core(device, inputs, mesh, render=render,
+                             check_kernels=render and dist.get_rank() == 0)]
+
+
+RANK_SCENARIOS = {"train": rank_train, "eval": rank_eval, "predict": rank_predict}
+
+
+def rank_main(spec_path, rank):
+    """One rank of run_ranks: join the group, run the scenario, save what
+    it returns beside the spec."""
+    import torch.distributed as dist
+    from hierarchicalprobabilistic3dhuman_torch.parallel import distributed_init
+    from hierarchicalprobabilistic3dhuman_torch.utils.device import set_full_f32
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.set_num_threads(spec["threads"])
+    device = torch.device(spec["device"])
+    set_full_f32(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", device.index or 0)
+        torch.cuda.set_device(device)
+    distributed_init(f"127.0.0.1:{spec['port']}", spec["world"], rank,
+                     backend=spec["backend"])
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    scenarios = RANK_SCENARIOS
+    if spec.get("module"):
+        import importlib.util
+        mod_spec = importlib.util.spec_from_file_location("rank_scenarios",
+                                                          spec["module"])
+        module = importlib.util.module_from_spec(mod_spec)
+        mod_spec.loader.exec_module(module)
+        scenarios = module.RANK_SCENARIOS
+    context = (deterministic_algorithms() if spec["deterministic"]
+               else contextlib.nullcontext())
+    with context:
+        out = scenarios[spec["scenario"]](device, inputs)
+    torch.save(out, f"{spec['out']}.{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(scenario, world, inputs, workdir, device="cpu", backend="gloo",
+              threads=1, deterministic=False, timeout=900, module=None):
+    """`world` ranks of this script on `scenario` (RANK_SCENARIOS, or those
+    of the file `module`) with `inputs`, joined through `backend` on
+    `device` (every rank on the same device); waits for all of them.
+
+    :return: what each rank's scenario returned, in rank order
+    """
+    from hierarchicalprobabilistic3dhuman_torch.parallel import free_port
+    os.makedirs(workdir, exist_ok=True)
+    spec = {"scenario": scenario, "world": world, "port": free_port(),
+            "device": str(device), "backend": backend, "threads": threads,
+            "deterministic": deterministic, "module": module,
+            "inputs": os.path.join(workdir, f"{scenario}_inputs.pt"),
+            "out": os.path.join(workdir, f"{scenario}_out")}
+    torch.save(inputs, spec["inputs"])
+    spec_path = os.path.join(workdir, f"{scenario}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads))
+    logs = [os.path.join(workdir, f"{scenario}_rank{r}.log") for r in range(world)]
+    procs = []
+    for r, path in enumerate(logs):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", spec_path,
+                 str(r)], stdout=f, stderr=subprocess.STDOUT, env=env))
+    t0 = time.monotonic()
+    try:
+        # A rank that fails leaves the others waiting in a collective: stop
+        # them all then.
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() for p in procs)
+                    or time.monotonic() - t0 > timeout):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode for p in procs):
+        tails = []
+        for r, (p, path) in enumerate(zip(procs, logs)):
+            with open(path) as f:
+                tails.append(f"--- rank {r} (rc {p.returncode}):\n{f.read()[-3000:]}")
+        raise RuntimeError(f"{scenario} ranks failed:\n" + "\n".join(tails))
+    return [torch.load(f"{spec['out']}.{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def allreduce_ms(numel, device, repeats=5):
+    """Median host-clock ms of an all-reduce (sum over the world) of
+    `numel` float32 values on `device`, each ending in a synchronize, after
+    one warm-up."""
+    import torch.distributed as dist
+    x = torch.ones(numel, device=device)
+    times = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def step_ms(step, draws, arrays, repeats=5):
+    """Median host-clock ms of a train step, its loss read as the loop
+    reads it, after one warm-up."""
+    times = []
+    for _ in range(repeats + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(draws, *arrays)[0]
+        float(loss)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def timed_steps(device, cfg, host_batch, mesh=None):
+    """Train img/s per stage at cfg's batch: a plain step, or one sharded
+    over `mesh` (its predictor in DDP); median of 5 steps."""
+    from hierarchicalprobabilistic3dhuman_torch.parallel import (
+        data_parallel, make_sharded_train_step)
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        TrainStep, batch_to_device)
+    from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
+    model, smpl, renderer, edge = train_parts(device, cfg)
+    optimizer = torch.optim.Adam(model.parameters(), lr=cfg.TRAIN.LR)
+    ddp = None if mesh is None else data_parallel(model, mesh)
+    arrays = batch_to_device(host_batch, device)
+    draws = Draws(torch.Generator(device=device).manual_seed(0))
+    out = {}
+    for stage in (1, 2):
+        metrics = TRAIN_METRICS + (["joints2Dsamples-L2E"] if stage == 2 else [])
+        step = TrainStep(model, cfg, smpl, renderer, edge,
+                         getattr(cfg.LOSS, f"STAGE{stage}"), optimizer,
+                         train=True, metrics_to_track=metrics)
+        if mesh is not None:
+            step = make_sharded_train_step(step, mesh, ddp)
+        ms = step_ms(step, draws, arrays)
+        out[f"stage{stage}_ms"] = ms
+        out[f"stage{stage}_img_s"] = host_batch["pose"].shape[0] / ms * 1e3
+    return out
+
+
+def gloo_timing(device, cfg, host_batch):
+    """In a rank of 10b: the sharded step's time per stage (data over the
+    world) and the all-reduce of the predictor's gradients, over gloo."""
+    from hierarchicalprobabilistic3dhuman_torch.parallel import make_mesh
+    out = timed_steps(device, cfg, host_batch, make_mesh(device=device))
+    n = sum(p.numel() for p in train_parts(device, cfg)[0].parameters())
+    out.update(params=n, allreduce_ms=allreduce_ms(n, device))
+    return out
+
+
+PAR_TRAIN_RUNS = [(1, 1), (2, 1), (2, 2)]       # (stage, sample axis) at 2 ranks
+PAR_EVAL = {"batch": 8, "samples": 10}
+PAR_PREDICT = {"batch": 1, "samples": 50}
+RESNET50_PARAMS = 27_200_000                     # float32 values, ~109 MB
+
+
+def par_eval_inputs(seed=0, wh=256):
+    """An SSP-3D batch at full width for the eval step: B = 8 random images,
+    heatmaps, targets and silhouettes, mixed genders, and its draws."""
+    from hierarchicalprobabilistic3dhuman_torch.evaluate.evaluate_pose_mf_shape_gaussian_net import (
+        sample_draws)
+    B, N = PAR_EVAL["batch"], PAR_EVAL["samples"]
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    yy, xx = np.mgrid[:wh, :wh]
+    body = ((yy - wh / 2) / (wh / 3)) ** 2 + ((xx - wh / 2) / (wh / 6)) ** 2 < 1
+    batch = {"image": t(rng.rand(B, 3, wh, wh)),
+             "heatmaps": t(rng.rand(B, 17, wh, wh) ** 16),
+             "pose": t(rng.randn(B, 72) * 0.2), "shape": t(rng.randn(B, 10)),
+             "gender": torch.tensor([1, 2] * (B // 2), dtype=torch.int32),
+             "joints2d": t(rng.rand(B, 17, 2) * wh),
+             "silhouette": t(np.broadcast_to(body, (B, wh, wh)))}
+    return {"cfg": [], "batch": batch, "metrics": list(SSP3D_METRICS),
+            "num_samples": N, "silhouettes": True,
+            "draws": sample_draws(torch.Generator().manual_seed(seed), B, N, 10, "cpu")}
+
+
+def par_predict_inputs(seed=0):
+    """One 288 x 384 crop with its joints for the predict core, 50
+    samples, the 6 views rendered."""
+    rng = np.random.RandomState(seed)
+    B = PAR_PREDICT["batch"]
+    joints = np.stack([rng.rand(B, 17) * 200 + 44, rng.rand(B, 17) * 300 + 42], -1)
+    return {"cfg": [], "num_samples": PAR_PREDICT["samples"], "seed": 4,
+            "render": True,
+            "hr": torch.from_numpy(rng.rand(B, 3, 384, 288).astype(np.float32)),
+            "joints2D": torch.from_numpy(joints.astype(np.float32)),
+            "confs": torch.from_numpy(rng.rand(B, 17).astype(np.float32))}
+
+
+def same_experiment(tag, exp_a, exp_b, epochs):
+    """Two experiment directories hold the same log.pkl and the same
+    checkpoints, tensor for tensor (bit-equal)."""
+    import pickle
+    with open(os.path.join(exp_a, "log.pkl"), "rb") as f:
+        log_a = pickle.load(f)
+    with open(os.path.join(exp_b, "log.pkl"), "rb") as f:
+        log_b = pickle.load(f)
+    differ = [k for k in log_a if log_a[k] != log_b.get(k)]
+    names = sorted(os.listdir(os.path.join(exp_a, "saved_models")))
+    if names != sorted(os.listdir(os.path.join(exp_b, "saved_models"))):
+        differ.append("saved_models")
+    for name in names:
+        a = torch.load(os.path.join(exp_a, "saved_models", name), weights_only=False)
+        b = torch.load(os.path.join(exp_b, "saved_models", name), weights_only=False)
+        for key in ("model_state_dict", "best_model_state_dict"):
+            differ += [f"{name}:{key}.{k}" for k, v in a[key].items()
+                       if not torch.equal(v, b[key][k])]
+        sa, sb = a["optimiser_state_dict"]["state"], b["optimiser_state_dict"]["state"]
+        differ += [f"{name}:adam.{i}.{k}" for i in sa for k, v in sa[i].items()
+                   if not torch.equal(torch.as_tensor(v), torch.as_tensor(sb[i][k]))]
+    log(f"[{tag}] {len(log_a['train_losses'])} epochs of log.pkl and {names}: "
+        f"{'equal, bit for bit' if not differ else 'differ at ' + str(differ[:5])}")
+    if differ or len(log_a["train_losses"]) != epochs:
+        raise AssertionError(f"[{tag}] the world-1 run differs from the plain run")
+
+
+def phase_parallel(workdir, device):
+    """Phase 10: the multi-device paths (see the module docstring).
+
+    :return: dict of the readings for the kernels line
+    """
+    import types
+    import torch.distributed as dist
+    from hierarchicalprobabilistic3dhuman_torch.cli import evaluate as eval_cli
+    from hierarchicalprobabilistic3dhuman_torch.cli.train import main as train_main
+    from hierarchicalprobabilistic3dhuman_torch.parallel import (
+        distributed_init, free_port, make_mesh)
+
+    readings = {"launches": {}}
+    t0 = [time.perf_counter()]
+
+    def lap(tag):
+        log(f"[{tag}] took {time.perf_counter() - t0[0]:.1f} s")
+        t0[0] = time.perf_counter()
+
+    # (a) the CLI's multi-process path (NCCL, world 1) against the plain one
+    def flags(name):
+        if name == "plain":
+            return ["--num_devices", "1"]
+        return ["--coordinator_address", f"127.0.0.1:{free_port()}",
+                "--num_processes", "1", "--process_id", "0"]
+
+    exps = {}
+    for name in ("plain", "world1"):
+        exp = exps[name] = os.path.join(workdir, f"par_train_{name}")
+        for what, argv, expect in (
+                ("2 epochs", ["-O", "LOSS.STAGE_CHANGE_EPOCH", "1",
+                              "TRAIN.EPOCHS_PER_SAVE", "1"],
+                 2 * TRAIN_STEPS_A_EPOCH),
+                ("resume", ["-R", "0"], TRAIN_STEPS_A_EPOCH)):
+            run_flags = flags(name)
+            with deterministic_algorithms():
+                _, launches = run_path(
+                    "phase 10a", f"run_train_torch.py {' '.join(argv + run_flags)} "
+                    f"--num_epochs 2 ({what})",
+                    lambda: train_main(["-E", exp, *argv, "--num_epochs", "2",
+                                        *run_flags]), expect=expect)
+            readings["launches"][f"train_{name}_{what.replace(' ', '_')}"] = launches
+    same_experiment("phase 10a", exps["plain"], exps["world1"], epochs=2)
+
+    # Phase 6's folder and weights (written here when phase 10 runs alone).
+    ssp3d = os.path.join(workdir, "ssp3d")
+    weights = os.path.join(workdir, "model.tar")
+    if not os.path.isdir(ssp3d):
+        write_ssp3d_folder(ssp3d, eval_photos())
+    if not os.path.exists(weights):
+        reference_checkpoint(weights)
+    metrics = {}
+    for name in ("plain", "world1"):
+        save = os.path.join(workdir, f"par_eval_{name}")
+        args = eval_cli.build_parser().parse_args(eval_argv(
+            "ssp3d", ssp3d, weights, save, EVAL_BATCH, str(device)))
+        if name == "world1":
+            args.coordinator_address = f"127.0.0.1:{free_port()}"
+            args.num_processes, args.process_id = 1, 0
+        with deterministic_algorithms(), contextlib.redirect_stdout(io.StringIO()):
+            metrics[name], launches = run_path(
+                "phase 10a", f"run_evaluate_torch.py --dataset ssp3d --batch_size "
+                f"{EVAL_BATCH} ({name})", lambda: eval_cli.run_evaluate(args),
+                expect=4)
+        readings["launches"][f"eval_{name}_16_frames"] = launches
+    files = sorted(os.listdir(os.path.join(workdir, "par_eval_plain")))
+    differ = [k for k in metrics["plain"] if metrics["plain"][k] != metrics["world1"][k]]
+    differ += [f for f in files if not np.array_equal(
+        np.load(os.path.join(workdir, "par_eval_plain", f)),
+        np.load(os.path.join(workdir, "par_eval_world1", f)))]
+    log(f"[phase 10a] evaluation at world 1 vs plain: {len(metrics['plain'])} "
+        f"metrics and {len(files)} per-frame files, differing: {differ}")
+    if differ:
+        raise AssertionError("[phase 10a] the world-1 evaluation differs")
+    lap("phase 10a")
+
+    # (b) two ranks on this card through gloo against one rank
+    cfg = train_cfg()
+    host_batch = train_batch(cfg.TRAIN.BATCH_SIZE, cfg.DATA.PROXY_REP_SIZE, seed=3)
+    worst = {}
+    with deterministic_algorithms():
+        refs = {stage: par_train_step(device, cfg, stage, host_batch, None, 5,
+                                      floors=True) for stage in (1, 2)}
+    outs = run_ranks("train", 2, {
+        "img_wh": cfg.DATA.PROXY_REP_SIZE, "num_samples": cfg.LOSS.NUM_SAMPLES,
+        "cfg": ["MODEL.EMBED_DIM", cfg.MODEL.EMBED_DIM], "seed": 5,
+        "batch": host_batch, "runs": PAR_TRAIN_RUNS,
+        "check_kernels": True, "timing": True},
+        os.path.join(workdir, "ranks_train"), device=str(device), backend="gloo",
+        threads=4, deterministic=True)
+    for rank, per_run in enumerate(outs):
+        for (stage, s), got in zip(PAR_TRAIN_RUNS, per_run):
+            key = f"train_stage{stage}_data{2 // s}_sample{s}"
+            worst[key] = max(worst.get(key, 0), compare_train(
+                f"phase 10b {key} rank {rank}", refs[stage], got))
+            readings["launches"][f"{key}_rank{rank}"] = got["launches"]
+    readings["kernels"] = dict(outs[0][0]["kernels"])
+    readings["gloo"] = outs[0][0]["timing"]
+    lap("phase 10b train")
+
+    eval_inputs = par_eval_inputs()
+    with deterministic_algorithms():
+        ref = par_eval_step(device, eval_inputs)
+    eval_inputs.update(sample_parallel=[1, 2], check_kernels=True)
+    outs = run_ranks("eval", 2, eval_inputs, os.path.join(workdir, "ranks_eval"),
+                     device=str(device), backend="gloo", threads=4,
+                     deterministic=True)
+    for rank, per_mesh in enumerate(outs):
+        for s, got in zip(eval_inputs["sample_parallel"], per_mesh):
+            key = f"eval_data{2 // s}_sample{s}"
+            worst[key] = max(worst.get(key, 0), compare_frames(
+                f"phase 10b {key} rank {rank}", ref, got))
+            readings["launches"][f"{key}_rank{rank}"] = got["launches"]
+    readings["kernels"].update(outs[0][0]["kernels"])
+    lap("phase 10b eval")
+
+    predict_inputs = par_predict_inputs()
+    with deterministic_algorithms():
+        ref = par_predict_core(device, predict_inputs,
+                               render=predict_inputs["render"])
+    outs = run_ranks("predict", 2, predict_inputs,
+                     os.path.join(workdir, "ranks_predict"), device=str(device),
+                     backend="gloo", threads=4, deterministic=True)
+    for rank, (got,) in enumerate(outs):
+        worst[f"predict_sample2_rank{rank}"] = compare_predict(
+            f"phase 10b predict core, sample 2 (25 / 25), rank {rank}", ref, got)
+        readings["launches"][f"predict_sample2_rank{rank}"] = got["launches"]
+    readings["kernels"].update(outs[0][0]["kernels"])
+    for name, k in readings["kernels"].items():
+        log(f"[phase 10b] rank 0's {name} tables ({k['meshes']} x {k['hw']}): "
+            f"K1 attrs {k['attr_err']:.1e} from its plain version, boxes "
+            f"{k['box_err']}; K1 {k['kernel_ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
+    readings["attr_err"] = max((k["attr_err"] for k in readings["kernels"].values()),
+                               default=0.0)
+    readings["box_err"] = max((k["box_err"] for k in readings["kernels"].values()),
+                              default=0)
+    readings["worst_of_tolerance"] = worst
+    log(f"[phase 10b] each path's largest difference over its tolerance: {worst}")
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"[phase 10b] the sharded paths disagree: {bad}")
+    lap("phase 10b predict")
+
+    # (c) times: DDP at world 1 (NCCL) against the plain step, the gradient
+    # all-reduce at world 1, and the gloo ranks' (a correctness run).
+    distributed_init(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        n18 = sum(p.numel() for p in train_parts(device, cfg)[0].parameters())
+        readings["nccl_world1"] = {
+            "plain": timed_steps(device, cfg, host_batch),
+            "ddp": timed_steps(device, cfg, host_batch, make_mesh(device=device)),
+            "allreduce_ms_resnet18": allreduce_ms(n18, device),
+            "allreduce_ms_resnet50": allreduce_ms(RESNET50_PARAMS, device),
+            "params_resnet18": n18}
+    finally:
+        dist.destroy_process_group()
+    card = card_line()
+    log(f"[phase 10c] {card}: train at B = {cfg.TRAIN.BATCH_SIZE}, NCCL world 1: "
+        f"{json.dumps(readings['nccl_world1'])}")
+    log(f"[phase 10c] {card}: two ranks on this card through gloo (a "
+        f"correctness run, not a scaling number): {json.dumps(readings['gloo'])}")
+    lap("phase 10c")
+    return readings
+
+
 def time_face_boxes_plain(scene):
     """face_boxes' plain version on a scene's faces, median of 5 x 20."""
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
@@ -3049,6 +3848,7 @@ def main():
         training = timed_phase("phase 7", phase_train, workdir, device)
         resnet50 = timed_phase("phase 8", phase_resnet50, workdir, device)
         native = timed_phase("phase 9", phase_native, workdir, device)
+        parallel = timed_phase("phase 10", phase_parallel, workdir, device)
 
     boxes = timing["face_boxes"]
     path_launches = {"per_image_3_photos": launches,
@@ -3058,7 +3858,8 @@ def main():
                      "train_2_epochs": training["launches"],
                      "train_resume_1_epoch": training["resume_launches"],
                      **resnet50["launches"],
-                     **native["launches"]}
+                     **native["launches"],
+                     **parallel["launches"]}
     kernels = [{
         "name": "rasterize",
         "route": "cuda",
@@ -3067,7 +3868,7 @@ def main():
         "launches": launches["rasterize"],
         "max_abs_err": max(attr_err, batched["attr_err"], evaluation["attr_err"],
                            training["attr_err"], resnet50["attr_err"],
-                           native["attr_err"]),
+                           native["attr_err"], parallel["attr_err"]),
         "ms": timing["predict"]["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["predict"]["bound_ms"],
@@ -3097,6 +3898,9 @@ def main():
                               ("bound_by", "bound_by"))},
         **{f"plain_ms_{name}": evaluation[f"plain_ms_{name}"]
            for name in ("eval_mode", "eval_samples")},
+        "sharded_paths": {name: {k: v[k] for k in ("meshes", "hw", "kernel_ms",
+                                                   "bound_ms", "bound_by")}
+                          for name, v in parallel["kernels"].items()},
         "device_launches_per_call": timing["device_launches_per_call"],
         "launches_by_path": {k: v["rasterize"] for k, v in path_launches.items()},
     }, {
@@ -3107,7 +3911,7 @@ def main():
         "launches": launches["face_boxes"],
         "max_abs_err": max(box_err, batched["box_err"], evaluation["box_err"],
                            training["box_err"], resnet50["box_err"],
-                           native["box_err"]),
+                           native["box_err"], parallel["box_err"]),
         "ms": boxes["predict"]["kernel_ms"],
         "plain_ms": boxes["plain_ms"],
         "bound_ms": boxes["predict"]["bound_ms"],
@@ -3131,7 +3935,7 @@ def main():
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
     for tag, readings in (("phase 5", batched), ("phase 6", evaluation),
                           ("phase 7", training), ("phase 8", resnet50),
-                          ("phase 9", native)):
+                          ("phase 9", native), ("phase 10", parallel)):
         log(f"[{tag}] readings " + json.dumps(
             {k: v for k, v in readings.items()
              if k not in ("kernels", "face_boxes", "launches", "kernel")}))
@@ -3144,4 +3948,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--rank":
+        sys.exit(rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -14,25 +14,18 @@ reference checkpoint. Added: --device (default cuda; a run that asks for
 cuda and finds none fails). `lapack_callback` is numpy's sgesdd on a host
 copy on every device: it is never swapped for `lapack`. --profile_dir DIR
 writes a torch.profiler Chrome trace of the evaluation to DIR/trace.json.
-Not ported yet, and refused when given: more than one device
-(--num_devices > 1, --sample_parallel > 1, parallel/).
+
+Several devices (parallel/launch.py): --num_devices N (default: every
+visible card; 1 keeps the plain single-device path) starts N ranks and
+--sample_parallel S splits them into a (N / S) x S ("data", "sample")
+mesh: the dataset batch shards over "data", the samples over "sample".
+A --batch_size that does not divide the data axis raises (JAX's CLI
+quietly evaluates on one device then), as do more devices than torch
+sees. Ranks run NCCL on the card and gloo with --device cpu.
 """
 
 import argparse
 import os
-
-
-def _refuse_unported(args):
-    """Flags of run_evaluate.py whose code is not ported yet raise rather
-    than being ignored."""
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: the multi-device paths "
-            "(parallel/mesh.py) are not ported yet; the port runs on one device")
-    if args.sample_parallel > 1:
-        raise NotImplementedError(
-            f"--sample_parallel {args.sample_parallel}: sharding the samples "
-            "across devices (parallel/mesh.py) is not ported yet")
 
 
 def select_dataset(args, pose_shape_cfg):
@@ -59,8 +52,10 @@ def select_dataset(args, pose_shape_cfg):
     return dataset, metrics
 
 
-def build_evaluator(args):
-    """Models, config, dataset and options of the evaluation, from the flags.
+def build_evaluator(args, mesh=None):
+    """Models, config, dataset and options of the evaluation, from the flags
+    (on a mesh, this rank's: its device, and rank 0 alone makes the save
+    directory).
 
     :return: keyword arguments for evaluate_pose_mf_shape_gaussian_net
     """
@@ -78,8 +73,7 @@ def build_evaluator(args):
     from hierarchicalprobabilistic3dhuman_torch.utils.device import (
         resolve_device, set_full_f32)
 
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     set_full_f32(device)
 
     pose_shape_cfg = get_pose_shape_cfg_defaults()
@@ -111,7 +105,8 @@ def build_evaluator(args):
         torch.Generator().manual_seed(0), "pose_shape_weights")
 
     save_path = args.save_path or os.path.join("./evaluations", args.dataset)
-    os.makedirs(save_path, exist_ok=True)
+    if mesh is None or mesh.is_main:
+        os.makedirs(save_path, exist_ok=True)
     return dict(
         pose_shape_model=pose_shape_model.to(device).eval(),
         pose_shape_cfg=pose_shape_cfg,
@@ -126,13 +121,30 @@ def build_evaluator(args):
         num_workers=args.num_workers,
         num_samples_for_metrics=args.num_samples,
         save_path=save_path,
-        save_per_frame_metrics=True)
+        save_per_frame_metrics=True,
+        mesh=mesh)
 
 
 def run_evaluate(args):
+    """Evaluate on the devices the flags ask for (parallel/launch.py);
+    returns the final metrics."""
+    from hierarchicalprobabilistic3dhuman_torch.parallel.launch import (
+        is_parallel, launch, world_size)
+    from hierarchicalprobabilistic3dhuman_torch.utils.device import resolve_device
+    device_type = resolve_device(args.device).type
+    if is_parallel(args, device_type):
+        n_data = world_size(args, device_type) // args.sample_parallel
+        if args.batch_size % n_data:
+            raise ValueError(
+                f"batch_size={args.batch_size} must divide the mesh data axis "
+                f"({n_data}) for dataset-sharded eval")
+    return launch(_run_evaluate, args, sample_parallel=args.sample_parallel)
+
+
+def _run_evaluate(args, mesh):
     from hierarchicalprobabilistic3dhuman_torch.evaluate.evaluate_pose_mf_shape_gaussian_net import (
         evaluate_pose_mf_shape_gaussian_net)
-    return evaluate_pose_mf_shape_gaussian_net(**build_evaluator(args))
+    return evaluate_pose_mf_shape_gaussian_net(**build_evaluator(args, mesh))
 
 
 def build_parser():
@@ -166,11 +178,12 @@ def build_parser():
     parser.add_argument("--num_workers", type=int, default=2,
                         help="Loader threads (0 loads in the main thread).")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Devices to use; the port runs on one, more "
-                             "are refused.")
+                        help="Devices for dataset-sharded eval (default: "
+                             "every visible card, one with --device cpu; 1 "
+                             "keeps the single-device path).")
     parser.add_argument("--sample_parallel", type=int, default=1,
-                        help="Size of the sample axis of a device mesh; the "
-                             "port has no mesh, more than 1 is refused.")
+                        help="Size of the mesh 'sample' axis (distribution "
+                             "samples shard across it).")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="Write a torch.profiler Chrome trace of "
                              "evaluation to DIR/trace.json.")

@@ -14,9 +14,12 @@ JAX package's flax variables file, told apart by the content; without one
 the network is randomly initialised from seed 0. --svd_impl auto takes the
 LAPACK-sign SVD exactly when a reference predictor checkpoint is given
 (the JAX package's cli/evaluate.py:81-83). MODEL.NUM_RESNET_LAYERS of
---pose_shape_cfg picks ResNet-18 or ResNet-50. More than
-one device (--num_devices > 1) is not ported yet and is refused. Without
-the licensed SMPL files the synthetic SMPL model is used.
+--pose_shape_cfg picks ResNet-18 or ResNet-50. --num_devices N
+(default: every visible card; 1 keeps the single-device path) starts N
+ranks on one "sample" axis: the uncertainty samples split over them and
+rank 0 writes (JAX's :194-202; parallel/launch.py); more devices than
+torch sees raise. Without the licensed SMPL files the synthetic SMPL model
+is used.
 """
 
 import argparse
@@ -52,15 +55,6 @@ def load_or_init(module, path, load_state_dict, generator, flag):
     return module
 
 
-def _refuse_unported(args):
-    """Flags of run_predict.py whose code is not ported yet raise rather
-    than being ignored."""
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: the multi-device paths "
-            "(parallel/mesh.py) are not ported yet; the port runs on one device")
-
-
 def _make_detector(args, hrnet, hrnet_cfg, device):
     """The person detector for uncropped photos, or None (cropped photos,
     or --detector none: whole-image boxes)."""
@@ -83,8 +77,9 @@ def _make_detector(args, hrnet, hrnet_cfg, device):
     return make_keypoint_bootstrap_detector(hrnet, hrnet_cfg, device)
 
 
-def build_predictor(args):
-    """Models, config and options of the predict, from the flags.
+def build_predictor(args, mesh=None):
+    """Models, config and options of the predict, from the flags (on a
+    mesh, on this rank's device).
 
     :return: keyword arguments shared by predict_pose_mf_shape_gaussian_net
         and predict_folder_batched
@@ -102,8 +97,7 @@ def build_predictor(args):
         resolve_device, set_full_f32)
     from hierarchicalprobabilistic3dhuman_torch.utils.precision import bf16_apply
 
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     set_full_f32(device)
 
     pose_shape_cfg = get_pose_shape_cfg_defaults()
@@ -158,7 +152,8 @@ def build_predictor(args):
         joints2Dvisib_threshold=args.joints2Dvisib_threshold,
         visualise_wh=args.visualise_wh,
         visualise_uncropped=args.visualise_uncropped,
-        num_uncertainty_samples=args.num_uncertainty_samples)
+        num_uncertainty_samples=args.num_uncertainty_samples,
+        mesh=mesh)
 
 
 def build_pose_shape_model(pose_shape_cfg, svd_impl):
@@ -177,11 +172,21 @@ def build_pose_shape_model(pose_shape_cfg, svd_impl):
 
 
 def run_predict(args):
+    """Predict on the devices the flags ask for, every one on the "sample"
+    axis (parallel/launch.py)."""
+    from hierarchicalprobabilistic3dhuman_torch.parallel.launch import (
+        launch, world_size)
+    from hierarchicalprobabilistic3dhuman_torch.utils.device import resolve_device
+    n = world_size(args, resolve_device(args.device).type)
+    return launch(_run_predict, args, sample_parallel=n)
+
+
+def _run_predict(args, mesh):
     """The batched folder driver for --batch_size > 1 or --no_vis, else the
     per-image driver."""
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
         predict_folder_batched, predict_pose_mf_shape_gaussian_net)
-    kwargs = build_predictor(args)
+    kwargs = build_predictor(args, mesh)
     if args.batch_size > 1 or args.no_vis:
         if args.visualise_samples:
             print("NOTE: --visualise_samples is per-image only; ignored "
@@ -238,8 +243,10 @@ def build_parser():
     parser.add_argument("--gender", "-G", type=str, default="neutral",
                         choices=["neutral", "male", "female"])
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Devices to use; the port runs on one, more "
-                             "are refused.")
+                        help="Devices for the sample-parallel uncertainty "
+                             "pass (default: every visible card, one with "
+                             "--device cpu; 1 keeps the single-device "
+                             "path).")
     parser.add_argument("--num_workers", type=int, default=0,
                         help="Unused; kept for CLI parity.")
     parser.add_argument("--batch_size", "-B", type=int, default=1,

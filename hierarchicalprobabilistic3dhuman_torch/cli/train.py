@@ -27,10 +27,16 @@ told apart by the content: the reference's, or the JAX package's pickle
 (flax trees and optax.adam's state, carried into torch.optim.Adam's), so
 a JAX experiment directory (its pose_shape_cfg.yaml and
 encoder_precision.txt too) resumes here. Added: --device (default cuda; a
-run that asks for cuda and finds none fails). Not ported yet, and refused
-when given: more than one device or process (--num_devices > 1,
---sample_parallel > 1, --coordinator_address, --num_processes,
---process_id).
+run that asks for cuda and finds none fails).
+
+Several devices (parallel/launch.py): --num_devices N (default: every
+visible card; 1 keeps the plain single-device path) starts N ranks,
+--sample_parallel S splits them into a (N / S) x S ("data", "sample")
+mesh, and --coordinator_address host:port --num_processes P --process_id
+p join P such processes into one world; the global batch
+(TRAIN.BATCH_SIZE) must divide the data axis. Ranks run NCCL on the card
+and gloo with --device cpu (several ranks on the CPU). Each rank resumes
+-R on its own; rank 0 writes the experiment directory.
 """
 
 import argparse
@@ -63,25 +69,6 @@ def resolve_encoder_precision(experiment_dir, bf16_flag, resuming):
     return bf16_flag
 
 
-def _refuse_unported(args):
-    """Flags of run_train.py whose code is not ported yet raise rather than
-    being ignored."""
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: the multi-device paths "
-            "(parallel/mesh.py, parallel/sharded_train.py) are not ported "
-            "yet; the port trains on one device")
-    if args.sample_parallel > 1:
-        raise NotImplementedError(
-            f"--sample_parallel {args.sample_parallel}: sharding the samples "
-            "across devices (parallel/sharded_train.py) is not ported yet")
-    for flag in ("coordinator_address", "num_processes", "process_id"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag}: multi-process training (parallel/mesh.py's "
-                "distributed_init) is not ported yet")
-
-
 def build_model_and_optimizer(pose_shape_cfg, device, rng_seed=0,
                               bf16_encoder=False, checkpoint=None):
     """The predictor the config describes, its weights drawn from
@@ -112,11 +99,13 @@ def build_model_and_optimizer(pose_shape_cfg, device, rng_seed=0,
     return model, optimizer, checkpoint
 
 
-def native_loaders(native_data_dir, batch_size, rng_seed):
+def native_loaders(native_data_dir, batch_size, rng_seed, n_threads=2):
     """NativeTrainLoaders of the train and val stores under
     `native_data_dir` (its train/ and val/ where they exist, else the
     directory itself for both), seeded rng_seed and rng_seed + 1 (JAX's
-    cli/train.py:184-202)."""
+    cli/train.py:184-202). Batches come in one order only from one
+    thread: the ranks of a mesh, which must all see the same batches,
+    take n_threads=1."""
     from hierarchicalprobabilistic3dhuman_torch.data.native_loader import (
         NativeTrainLoader)
 
@@ -124,9 +113,11 @@ def native_loaders(native_data_dir, batch_size, rng_seed):
         sub = os.path.join(native_data_dir, split)
         return sub if os.path.isdir(sub) else native_data_dir
 
-    train = NativeTrainLoader(store_dir("train"), batch_size, seed=rng_seed)
+    train = NativeTrainLoader(store_dir("train"), batch_size, n_threads=n_threads,
+                              seed=rng_seed)
     try:
-        val = NativeTrainLoader(store_dir("val"), batch_size, seed=rng_seed + 1)
+        val = NativeTrainLoader(store_dir("val"), batch_size, n_threads=n_threads,
+                                seed=rng_seed + 1)
     except BaseException:
         train.close()
         raise
@@ -134,6 +125,15 @@ def native_loaders(native_data_dir, batch_size, rng_seed):
 
 
 def run_train(args):
+    """Train on the devices the flags ask for (parallel/launch.py)."""
+    from hierarchicalprobabilistic3dhuman_torch.parallel.launch import launch
+    from hierarchicalprobabilistic3dhuman_torch.utils.device import resolve_device
+    resolve_device(args.device)
+    return launch(_run_train, args, sample_parallel=args.sample_parallel)
+
+
+def _run_train(args, mesh):
+    """The run of one rank (mesh: a parallel Mesh, or None)."""
     from hierarchicalprobabilistic3dhuman_torch.configs import (
         get_pose_shape_cfg_defaults, paths)
     from hierarchicalprobabilistic3dhuman_torch.data.on_the_fly_smpl_train_dataset import (
@@ -150,9 +150,9 @@ def run_train(args):
     from hierarchicalprobabilistic3dhuman_torch.utils.device import (
         resolve_device, set_full_f32)
 
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     set_full_f32(device)
+    main = mesh is None or mesh.is_main
 
     # Experiment directory layout (reference run_train.py:28-33)
     experiment_dir = args.experiment_dir
@@ -174,11 +174,19 @@ def run_train(args):
     else:
         if args.pose_shape_cfg_opts is not None:
             pose_shape_cfg.merge_from_list(args.pose_shape_cfg_opts)
-        with open(cfg_save_path, "w") as f:
-            f.write(pose_shape_cfg.dump())
-        resolve_encoder_precision(experiment_dir, args.bf16_encoder,
-                                  resuming=False)
-        print(f"\nSaved config to {cfg_save_path}")
+        if main:
+            with open(cfg_save_path, "w") as f:
+                f.write(pose_shape_cfg.dump())
+            resolve_encoder_precision(experiment_dir, args.bf16_encoder,
+                                      resuming=False)
+            print(f"\nSaved config to {cfg_save_path}")
+    if mesh is not None:
+        n_data = mesh.shape["data"]
+        if pose_shape_cfg.TRAIN.BATCH_SIZE % n_data:
+            raise ValueError(
+                f"TRAIN.BATCH_SIZE={pose_shape_cfg.TRAIN.BATCH_SIZE} must "
+                f"divide the mesh data axis ({n_data})")
+        print(f"Training on mesh {mesh.shape} ({mesh.size} ranks)")
 
     D = pose_shape_cfg.DATA.PROXY_REP_SIZE
     train_dataset = val_dataset = None
@@ -236,7 +244,8 @@ def run_train(args):
         # on C++ threads from packed stores, uint8 textures and backgrounds
         # end to end (normalised on the device).
         loaders = native_loaders(args.native_data_dir,
-                                 pose_shape_cfg.TRAIN.BATCH_SIZE, args.rng_seed)
+                                 pose_shape_cfg.TRAIN.BATCH_SIZE, args.rng_seed,
+                                 n_threads=2 if mesh is None else 1)
         print(f"Native input pipeline: {args.native_data_dir} "
               f"({loaders['train'].steps_per_epoch} train steps/epoch)")
     try:
@@ -256,7 +265,8 @@ def run_train(args):
             checkpoint=checkpoint,
             rng_seed=args.rng_seed,
             num_epochs=args.num_epochs,
-            loaders=loaders)
+            loaders=loaders,
+            mesh=mesh)
     finally:
         for loader in (loaders or {}).values():
             loader.close()
@@ -275,17 +285,25 @@ def build_parser():
     parser.add_argument("--num_epochs", type=int, default=None,
                         help="Override TRAIN.NUM_EPOCHS (e.g. for smoke runs).")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Only 1 is ported (more raise).")
+                        help="Devices to train on (default: every visible "
+                             "card, one with --device cpu; 1 keeps the "
+                             "single-device path). More than torch sees "
+                             "raise.")
     parser.add_argument("--sample_parallel", type=int, default=1,
-                        help="Only 1 is ported (more raise).")
+                        help="Size of the mesh 'sample' axis (stage 2's "
+                             "distribution samples split across it).")
     parser.add_argument("--native_data_dir", type=str, default=None,
                         help="Directory of packed .bin stores (see "
                              "data/pack_training_stores.py); enables the "
                              "C++ batch-assembly input pipeline.")
     parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="Multi-process training is not ported (raises).")
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
+                        help="host:port of rank 0's process group "
+                             "(several processes, one or more hosts).")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="Processes of the run, each with "
+                             "--num_devices ranks.")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="This process's index among them.")
     parser.add_argument("--bf16_encoder", action="store_true",
                         help="Run the ResNet encoder under bfloat16 autocast "
                              "(parameters, BatchNorm and head stay float32; "

@@ -22,7 +22,18 @@ evaluate_poseMF_shapeGaussian_net.py:19-258:
 
 Sampling draws come from a torch.Generator seeded with RNG_SEED, one set per
 batch (sample_draws), where the JAX driver splits its key once per batch.
-There is no mesh: the multi-device paths (parallel/) are not ported yet.
+
+On a parallel Mesh (JAX's mesh= at :74-108, :226-256, :282, :328-332) every
+rank loads the same global batch and draws; the step runs on this rank's
+rows (parallel/make_sharded_eval_step) and, of each row's N samples, on
+this rank's part, split after the sampler ran on all N x 8 lanes; the mode
+stays sample 0 on sample index 0. The best-sample metrics take the
+minimum over the samples gathered from "sample", the sample sums are
+summed over the world, and the per-frame values come back over "data" in
+frame order, so every rank's tracker sees the global batch. A batch size
+that does not divide the data axis raises (JAX's CLI quietly drops the
+mesh then, cli/evaluate.py:122-124). Rank 0 alone writes the per-frame
+files.
 """
 
 import os
@@ -38,6 +49,8 @@ from hierarchicalprobabilistic3dhuman_torch.models.smpl import (
     NUM_BODY_JOINTS, smpl_forward_mixed)
 from hierarchicalprobabilistic3dhuman_torch.ops.bingham_sampling import (
     pose_matrix_fisher_sampling, shape_gaussian_sampling)
+from hierarchicalprobabilistic3dhuman_torch.parallel.sharded_train import (
+    make_sharded_eval_step)
 from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
     TexturedIUVRenderer)
 from hierarchicalprobabilistic3dhuman_torch.utils.cam_utils import (
@@ -119,7 +132,7 @@ def make_eval_step(pose_shape_model, smpl_neutral, smpl_male, smpl_female,
                    edge_detect_model, pose_shape_cfg, num_samples,
                    compute_joints2d, compute_silhouettes, compute_samples,
                    silhouette_renderer, static_gender=None,
-                   frame_metrics_fn=None):
+                   frame_metrics_fn=None, mesh=None):
     """Build the per-batch evaluation function.
 
     static_gender (None | 0 | 1 | 2): when the whole batch shares one gender
@@ -130,6 +143,10 @@ def make_eval_step(pose_shape_model, smpl_neutral, smpl_male, smpl_female,
     given, the per-frame metric values are computed in the step and
     returned under out["frame_metrics"], and the bulky vertex, sample and
     silhouette tensors are dropped from the outputs.
+
+    mesh (a parallel Mesh): the step takes the global batch and its draws
+    and returns every frame's outputs on every rank (see the module
+    docstring); frame_metrics_fn must then be built with the same mesh.
 
     :return: step(draws, image, heatmaps, target_pose, target_shape,
         gender_code, target_joints2d, target_silhouette) -> dict of tensors;
@@ -218,15 +235,21 @@ def make_eval_step(pose_shape_model, smpl_neutral, smpl_male, smpl_female,
 
         # ---- samples ----
         if compute_samples:
-            N = num_samples
             pose_samples = pose_matrix_fisher_sampling(
                 pred["pose_params_U"], pred["pose_params_S"],
-                pred["pose_params_V"], N, b=BINGHAM_B,
+                pred["pose_params_V"], num_samples, b=BINGHAM_B,
                 oversampling_ratio=OVERSAMPLING, eps=draws["pose_eps"],
                 w=draws["pose_w"])
+            shape_eps = draws["shape_eps"]
+            mode_here = True
+            if mesh is not None:    # this rank's samples, after the sampler
+                own = mesh.samples(num_samples)
+                pose_samples, shape_eps = pose_samples[:, own], shape_eps[:, own]
+                mode_here = own.start == 0
+            N = pose_samples.shape[1]
             shape_samples = shape_gaussian_sampling(
                 pred["shape_mean"], torch.exp(pred["shape_log_std"]), N,
-                eps=draws["shape_eps"])
+                eps=shape_eps)
             flat_shape = shape_samples.reshape(B * N, -1)
             flat_glob = glob_rotmats[:, None].expand(B, N, 3, 3).reshape(B * N, 1, 3, 3)
             sampled = smpl_neutral(body_pose=pose_samples.reshape(B * N, 23, 3, 3),
@@ -234,17 +257,18 @@ def make_eval_step(pose_shape_model, smpl_neutral, smpl_male, smpl_female,
                                    pose2rot=False)
             verts_s = sampled["vertices"].reshape(B, N, -1, 3)
             joints_s = sampled["joints"].reshape(B, N, -1, 3)
-            # inject the mode as sample 0 (reference :172-179)
-            verts_s = torch.cat([verts_mode[:, None], verts_s[:, 1:]], dim=1)
             joints3d_s = joints_s[:, :, h36m_map][:, :, j14_map]
-            joints3d_s = torch.cat([out["pred_joints3D"][:, None],
-                                    joints3d_s[:, 1:]], dim=1)
+            reposed_s = smpl_neutral(betas=flat_shape)["vertices"].reshape(B, N, -1, 3)
+            if mode_here:
+                # inject the mode as sample 0 (reference :172-179)
+                verts_s = torch.cat([verts_mode[:, None], verts_s[:, 1:]], dim=1)
+                joints3d_s = torch.cat([out["pred_joints3D"][:, None],
+                                        joints3d_s[:, 1:]], dim=1)
+                reposed_s = torch.cat([reposed_mean[:, None], reposed_s[:, 1:]],
+                                      dim=1)
             out["pred_verts_samples"] = verts_s
             out["pred_joints3D_samples"] = joints3d_s
-
-            reposed_s = smpl_neutral(betas=flat_shape)["vertices"].reshape(B, N, -1, 3)
-            out["pred_reposed_verts_samples"] = torch.cat(
-                [reposed_mean[:, None], reposed_s[:, 1:]], dim=1)
+            out["pred_reposed_verts_samples"] = reposed_s
 
             if compute_joints2d:
                 j2d_s = project_coco(joints_s.reshape(B * N, -1, 3),
@@ -266,7 +290,15 @@ def make_eval_step(pose_shape_model, smpl_neutral, smpl_male, smpl_female,
             target_m["silhouettes"] = target_silhouette
             out["frame_metrics"] = frame_metrics_fn(pred_m, target_m)
             out = {k: v for k, v in out.items() if k in _DUMP_KEYS}
+        elif mesh is not None:
+            # The host tracker takes every sample: gather them over "sample".
+            sizes = mesh.sample_sizes(num_samples)
+            out = {k: (mesh.all_gather(v, "sample", dim=1, sizes=sizes)
+                       if "samples" in k else v) for k, v in out.items()}
         return out
+
+    if mesh is not None:
+        _step = make_sharded_eval_step(_step, mesh)
 
     def step(*args):
         with torch.inference_mode():
@@ -297,7 +329,8 @@ def evaluate_pose_mf_shape_gaussian_net(pose_shape_model,
                                         save_path=None,
                                         save_per_frame_metrics=False,
                                         sort_by_gender=True,
-                                        on_device_metrics=True):
+                                        on_device_metrics=True,
+                                        mesh=None):
     """Run evaluation; prints final metrics and returns them as a dict.
 
     :param pose_shape_model: the distribution predictor, in eval mode, on
@@ -310,7 +343,17 @@ def evaluate_pose_mf_shape_gaussian_net(pose_shape_model,
         fetch a few numbers per frame, instead of fetching the vertex,
         sample and silhouette tensors to the host tracker (the reference
         behaviour, kept under on_device_metrics=False).
+    :param mesh: optional parallel Mesh: the dataset batch shards over
+        "data" and the samples over "sample" (see the module docstring);
+        the batch size must divide the data axis
     """
+    if mesh is not None:
+        n_data = mesh.shape["data"]
+        if batch_size % n_data:
+            raise ValueError(
+                f"batch_size={batch_size} must divide the mesh data axis "
+                f"({n_data}) for dataset-sharded eval")
+    main = mesh is None or mesh.is_main
     dataset_codes = _dataset_gender_codes(eval_dataset) if sort_by_gender else None
     sorted_pass = dataset_codes is not None and len(np.unique(dataset_codes)) > 1
     if sorted_pass:
@@ -324,6 +367,7 @@ def evaluate_pose_mf_shape_gaussian_net(pose_shape_model,
                         drop_last=True, num_workers=num_workers)
 
     D = pose_shape_cfg.DATA.PROXY_REP_SIZE
+    save_per_frame_metrics = save_per_frame_metrics and main
     tracker = EvalMetricsTracker(metrics, img_wh=D, save_path=save_path,
                                  save_per_frame_metrics=save_per_frame_metrics)
     tracker.initialise_metric_sums()
@@ -336,8 +380,9 @@ def evaluate_pose_mf_shape_gaussian_net(pose_shape_model,
                                                projection_type="orthographic",
                                                render_rgb=False)
                            if compute_silhouettes else None)
-    frame_metrics_fn = (make_eval_frame_metrics_fn(metrics) if on_device_metrics
-                        else None)
+    frame_metrics_fn = (make_eval_frame_metrics_fn(
+        metrics, mesh=mesh, num_samples=num_samples_for_metrics)
+        if on_device_metrics else None)
 
     steps = {}
 
@@ -348,7 +393,7 @@ def evaluate_pose_mf_shape_gaussian_net(pose_shape_model,
                 edge_detect_model, pose_shape_cfg, num_samples_for_metrics,
                 compute_joints2d, compute_silhouettes, compute_samples,
                 silhouette_renderer, static_gender=static_gender,
-                frame_metrics_fn=frame_metrics_fn)
+                frame_metrics_fn=frame_metrics_fn, mesh=mesh)
         return steps[static_gender]
 
     generator = torch.Generator(device=device).manual_seed(RNG_SEED)
@@ -435,4 +480,6 @@ def evaluate_pose_mf_shape_gaussian_net(pose_shape_model,
             arrays = {k: v[restore] for k, v in arrays.items()}
         for name, arr in arrays.items():
             np.save(os.path.join(save_path, f"{name}.npy"), arr)
+    if mesh is not None:
+        mesh.barrier()
     return final_metrics

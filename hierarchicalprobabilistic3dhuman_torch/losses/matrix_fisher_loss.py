@@ -10,6 +10,15 @@ the MSEs over vertices and 3D joints. The visible-joint MSE selects with
 selects the difference before squaring it, so that such a target gives a
 zero gradient too (JAX's form, a `where` on the square, gives the same
 value and, for an inf target, a NaN gradient).
+
+On a parallel Mesh each rank computes its share of the global batch's
+loss, so that the shares sum to it over the world and their gradients to
+its gradient: the terms of the rows it holds, over the global batch's
+count, and divided by the "sample" axis, whose ranks hold the same rows;
+the 2D-joint term over the 2D-joint sets it holds (its samples, and the
+mode's on sample index 0 alone), over the global batch's denominator: the
+visible joints summed over "data", without a gradient through the sum
+(JAX divides by sum(vis) of the global batch, :88-89).
 """
 
 import math
@@ -45,7 +54,7 @@ class PoseMFShapeGaussianLoss:
         self.cfg = loss_config
         self.img_wh = img_wh
 
-    def __call__(self, target_dict, pred_dict):
+    def __call__(self, target_dict, pred_dict, mesh=None, j2d_sets=None):
         """
         target_dict: pose_params_rotmats (B, 23, 3, 3), shape_params (B, nb),
             joints2D (B, K, 2) pixels, joints2D_vis (B, K) bool,
@@ -53,9 +62,17 @@ class PoseMFShapeGaussianLoss:
         pred_dict: pose_params_{F,U,S,V}, shape_mean, shape_log_std,
             joints2D (B, num_sets, K, 2) in [-1, 1], glob_rotmats, verts,
             joints3D.
-        :return: (total loss, dict of the unweighted terms)
+        :param mesh: with a parallel Mesh, this rank's rows and 2D-joint
+            sets of the global batch, whose 2D-joint sets number `j2d_sets`
+        :return: (total loss, dict of the unweighted terms); with a mesh,
+            this rank's shares of them
         """
         reduction = self.cfg.REDUCTION
+        share = 1.0
+        if mesh is not None:
+            share = 1.0 / mesh.shape["sample"]
+            if reduction == "mean":
+                share /= mesh.shape["data"]
         pose_nll = _reduce(matrix_fisher_nll(
             pred_dict["pose_params_F"], pred_dict["pose_params_U"],
             pred_dict["pose_params_S"], pred_dict["pose_params_V"],
@@ -74,7 +91,11 @@ class PoseMFShapeGaussianLoss:
         masked = torch.where(vis[:, None, :, None] > 0, diff,
                              torch.zeros_like(diff)) ** 2
         if reduction == "mean":
-            denom = torch.clamp(torch.sum(vis) * pred_j2d.shape[1] * 2, min=1.0)
+            num_vis = torch.sum(vis)
+            if mesh is not None:
+                num_vis = mesh.all_reduce(num_vis.detach().clone(), "data")
+            sets = pred_j2d.shape[1] if j2d_sets is None else j2d_sets
+            denom = torch.clamp(num_vis * sets * 2, min=1.0)
             joints2D_loss = torch.sum(masked) / denom
         else:
             joints2D_loss = torch.sum(masked)
@@ -86,6 +107,10 @@ class PoseMFShapeGaussianLoss:
         joints3D_loss = _reduce((pred_dict["joints3D"]
                                  - target_dict["joints3D"]) ** 2, reduction)
 
+        if mesh is not None:
+            pose_nll, shape_nll, glob_loss, verts_loss, joints3D_loss = (
+                t * share for t in (pose_nll, shape_nll, glob_loss, verts_loss,
+                                    joints3D_loss))
         W = self.cfg.WEIGHTS
         total = (pose_nll * W.POSE + shape_nll * W.SHAPE
                  + joints2D_loss * W.JOINTS2D + glob_loss * W.GLOB_ROTMATS

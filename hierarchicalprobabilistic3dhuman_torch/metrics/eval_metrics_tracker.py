@@ -12,7 +12,11 @@ joints2D-L2E / silhouette-IOU. Sample metrics: `<m>_samples_min` (best of N
 samples) and joints2Dsamples-L2E / silhouettesamples-IOU (mean over N).
 Final 3D metrics print in millimetres (x1000); per-frame metrics save as
 `<metric>_per_frame.npy`. Unlike the reference, sample-min metrics accept
-batch size > 1.
+batch size > 1. On a parallel Mesh the sharded eval step hands every rank
+the global batch's per-frame values in frame order and its sample sums
+summed over the world (parallel/sharded_train.py::gather_rows), so every
+rank's tracker holds the same sums and ordered lists; the driver lets
+rank 0 alone save them.
 """
 
 import os

@@ -8,7 +8,11 @@ per-frame metric values (Procrustes and scale alignments, sample minima,
 IOU confusion counts) and the train step the per-batch metric sums, so the
 host fetches a few numbers instead of the meshes, samples and silhouettes.
 They feed EvalMetricsTracker.update_per_batch_device and
-TrainingLossesAndMetricsTracker.update_per_batch_sums.
+TrainingLossesAndMetricsTracker.update_per_batch_sums. On a parallel Mesh
+the eval frame metrics of a rank cover its rows and its part of the
+samples: a best-sample metric takes its minimum over the per-sample errors
+gathered from the "sample" axis, and the sample sums are this rank's share
+(parallel/gather_rows sums them over the world).
 """
 
 import torch
@@ -49,24 +53,25 @@ def align(pred, target, mode):
     return pred
 
 
-def make_eval_frame_metrics_fn(metrics_to_track):
+def make_eval_frame_metrics_fn(metrics_to_track, mesh=None, num_samples=None):
     """Build a fn (pred_dict, target_dict) -> per-frame metrics.
 
     Returns, per tracked metric, the (B,) per-frame mean point error, plus
     per-frame confusion counts for the IOU metrics and scalar sums for
     joints2Dsamples-L2E: the quantities EvalMetricsTracker.update_per_batch
-    computes from fetched tensors. The alignments run with TF32 off.
+    computes from fetched tensors. The alignments run with TF32 off. With
+    a mesh the samples are this rank's part of `num_samples`.
     """
     track = list(metrics_to_track)
 
     def f(pred, target):
         with full_f32_matmul():
-            return _eval_frame_metrics(pred, target, track)
+            return _eval_frame_metrics(pred, target, track, mesh, num_samples)
 
     return f
 
 
-def _eval_frame_metrics(pred, target, track):
+def _eval_frame_metrics(pred, target, track, mesh=None, num_samples=None):
     out = {}
     for m in track:
         if m in EVAL_POINT_METRICS:
@@ -86,6 +91,9 @@ def _eval_frame_metrics(pred, target, track):
             err = torch.linalg.vector_norm(align(flat, tiled, mode) - tiled,
                                            dim=-1).reshape(B, N, -1)
             mean_err = err.mean(dim=-1)                       # (B, N)
+            if mesh is not None:
+                mean_err = mesh.all_gather(mean_err, "sample", dim=1,
+                                           sizes=mesh.sample_sizes(num_samples))
             best = torch.argmin(mean_err, dim=1)
             out[m] = mean_err[torch.arange(B, device=best.device), best]
 

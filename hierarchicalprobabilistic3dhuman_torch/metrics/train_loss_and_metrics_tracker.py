@@ -7,7 +7,9 @@ for missing metrics, and best-model selection requiring ALL save metrics to
 improve. log.pkl holds the same keys. The host path (update_per_batch)
 takes numpy arrays and runs the alignments through the port's torch
 functions on the CPU; update_per_batch_sums takes the scalars of
-metrics/metric_sums.py::make_metric_sums_fn.
+metrics/metric_sums.py::make_metric_sums_fn, which a sharded train step
+makes the global batch's with all_reduce_sums. On a mesh every rank keeps
+the same history; rank 0 alone writes log.pkl (save_logs).
 """
 
 import pickle
@@ -32,6 +34,23 @@ ALL_METRICS_TYPES = ['train_PVE', 'val_PVE',
                      'train_joints2Dsamples-L2E', 'val_joints2Dsamples-L2E']
 
 
+# Sums over the samples of each row, which a mesh splits over "sample".
+SAMPLE_SUMS = ("joints2Dsamples-L2E", "num_visib_joints2Dsamples")
+
+
+def all_reduce_sums(mesh, sums):
+    """The global batch's metric sums from this rank's: the sums over
+    samples summed over the world, the others over "data" (the ranks of
+    one row slice hold the same rows)."""
+    out = {}
+    for axis, keys in ((None, [k for k in sums if k in SAMPLE_SUMS]),
+                       ("data", [k for k in sums if k not in SAMPLE_SUMS])):
+        if keys:
+            total = mesh.all_reduce(torch.stack([sums[k] for k in keys]), axis)
+            out.update(zip(keys, total.unbind()))
+    return {k: out[k] for k in sums}
+
+
 def _np_align(fn, p, t):
     """An alignment of the port's (torch) on numpy arrays."""
     return fn(torch.from_numpy(np.ascontiguousarray(p, np.float32)),
@@ -40,8 +59,9 @@ def _np_align(fn, p, t):
 
 class TrainingLossesAndMetricsTracker:
     def __init__(self, metrics_to_track, img_wh, log_save_path,
-                 load_logs=False, current_epoch=None):
+                 load_logs=False, current_epoch=None, save_logs=True):
         self.all_metrics_types = ALL_METRICS_TYPES
+        self.save_logs = save_logs
         self.metrics_to_track = metrics_to_track
         self.img_wh = img_wh
         self.log_save_path = log_save_path
@@ -186,7 +206,7 @@ class TrainingLossesAndMetricsTracker:
                 metric, self.epochs_history['train_' + metric][-1],
                 metric, self.epochs_history['val_' + metric][-1]))
 
-        if self.log_save_path is not None:
+        if self.log_save_path is not None and self.save_logs:
             with open(self.log_save_path, 'wb') as f:
                 pickle.dump(self.epochs_history, f)
 

@@ -12,12 +12,44 @@ changes, so every stage of ResNet-50 has one, stage 1's at stride 1
 BatchNorm in train mode follows flax's nn.BatchNorm(momentum=0.9) (the JAX
 package's :30-68), not torch's: the batch is normalised with the biased
 variance E[x^2] - E[x]^2, and the running variance is updated with that
-same biased variance.
+same biased variance. Under a sharded jit flax's statistics are the global
+batch's; the port's ranks get the same through `sync` (a parallel Mesh):
+the moments are summed over the mesh's "data" axis, with a backward that
+sums their two gradients there (torch's SyncBatchNorm would all-gather and
+update the running variance with the unbiased variance).
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class _SyncedMoments(torch.autograd.Function):
+    """E[x] and E[x^2] per channel over the rows of every rank of the
+    mesh's "data" axis. Backward: the two upstream gradients are summed
+    over the same ranks (each rank's loss uses the shared moments), then
+    dx = (g_mean + 2 x g_ex2) / n for the global count n."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        c = x.shape[1]
+        count = torch.full((1,), float(x.numel() // c), dtype=x.dtype,
+                           device=x.device)
+        sums = mesh.all_reduce(torch.cat([x.sum(dim=(0, 2, 3)),
+                                          (x * x).sum(dim=(0, 2, 3)), count]),
+                               "data")
+        n = sums[2 * c]
+        ctx.save_for_backward(x, n)
+        ctx.mesh = mesh
+        return sums[:c] / n, sums[c:2 * c] / n
+
+    @staticmethod
+    def backward(ctx, g_mean, g_ex2):
+        x, n = ctx.saved_tensors
+        c = x.shape[1]
+        g = ctx.mesh.all_reduce(torch.cat([g_mean, g_ex2]), "data")
+        g_mean, g_ex2 = (g[:c] / n)[None, :, None, None], (g[c:] / n)[None, :, None, None]
+        return g_mean + 2.0 * x * g_ex2, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -29,15 +61,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     running = (1 - momentum) * running + momentum * batch for both, with the
     biased var (torch would use the unbiased one). Input of another dtype
     (bfloat16 from an autocast conv) is normalised in the parameters' dtype.
+    With `sync` set to a Mesh whose "data" axis holds more than one rank,
+    the moments are the global batch's.
     """
+
+    sync = None
 
     def forward(self, x):
         if x.dtype != self.weight.dtype:
             x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.sync is not None and self.sync.shape["data"] > 1:
+            mean, ex2 = _SyncedMoments.apply(x, self.sync)
+        else:
+            mean, ex2 = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)

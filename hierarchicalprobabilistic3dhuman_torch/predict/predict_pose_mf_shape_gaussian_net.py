@@ -10,6 +10,12 @@ proxy), the distribution predictor, SMPL mode and T-pose meshes, per-vertex
 uncertainty from pose samples, and, with figures on, jet colours and ONE
 batched render of the 6 views per image through the rasterizer kernel,
 composited over the crop.
+
+On a parallel Mesh of the "sample" axis alone (JAX's cli/predict.py:194-202
+puts every device there) every rank runs the whole path on every image and
+the SMPL of the uncertainty samples splits over the ranks
+(utils/sampling_utils.py); rank 0 alone renders and writes the figures and
+outputs.npz, the other ranks return the same results.
 """
 
 import os
@@ -146,12 +152,14 @@ def six_views(verts_mode, reposed_verts, vertex_colours, pred_cam_t,
 def make_predict_core(pose_shape_model, pose_shape_cfg, smpl_model,
                       edge_detect_model, body_vis_renderer, hrnet_cfg,
                       joints2Dvisib_threshold=0.75, num_uncertainty_samples=50,
-                      render_vis=True):
+                      render_vis=True, mesh=None):
     """Everything between the HRNet output and the figure, for a batch of B
     images: crop, proxy, predictor, SMPL mode, uncertainty sampling and,
     with `render_vis`, the T-pose, jet colours, the 6-view render and the
     front composite. With render_vis=False no render is made at all (the
     batched --no_vis serving path), and `body_vis_renderer` may be None.
+    With a parallel `mesh` the uncertainty samples split over its "sample"
+    axis (every rank gets every output).
 
     :return: core(hr_cropped (B, 3, 384, 288), joints2D (B, 17, 2),
         confs (B, 17), generator=None, eps=None, w=None) -> dict of batched
@@ -195,7 +203,7 @@ def make_predict_core(pose_shape_model, pose_shape_cfg, smpl_model,
                 pred["pose_params_U"], pred["pose_params_S"],
                 pred["pose_params_V"], pred["shape_mean"], glob_rotmats,
                 num_uncertainty_samples, smpl_model, generator=generator,
-                eps=eps, w=w)
+                eps=eps, w=w, mesh=mesh)
 
         cam_wp = pred["cam"]
         pred_scale = cam_wp[:, 0:1].expand(B, 2)
@@ -395,7 +403,8 @@ def predict_pose_mf_shape_gaussian_net(pose_shape_model, pose_shape_cfg,
                                        visualise_wh=512,
                                        visualise_uncropped=True,
                                        visualise_samples=False,
-                                       num_uncertainty_samples=50):
+                                       num_uncertainty_samples=50,
+                                       mesh=None):
     """Run prediction on every .jpg/.png in image_dir, one image at a time,
     and write the 2 x 4 figure per image to save_dir, with
     `visualise_uncropped` the front render pasted into the photo
@@ -406,9 +415,13 @@ def predict_pose_mf_shape_gaussian_net(pose_shape_model, pose_shape_cfg,
     :param hrnet: callable (B, 3, 384, 288) -> (B, 17, 96, 72) on `device`
     :param object_detect_fn: optional person detector (see predict_hrnet);
         None takes each photo whole (cropped inputs)
+    :param mesh: optional parallel Mesh of the "sample" axis alone: the
+        uncertainty samples split over its ranks; rank 0 alone renders and
+        writes
     :return: {fname: dict pose_mode (23, 3, 3), shape_mean (10,), cam (3,),
         per_vertex_uncertainty (6890,)} as numpy
     """
+    main = _check_sample_mesh(mesh)
     os.makedirs(save_dir, exist_ok=True)
     renderer = TexturedIUVRenderer(device, img_wh=visualise_wh,
                                    projection_type="orthographic",
@@ -419,7 +432,8 @@ def predict_pose_mf_shape_gaussian_net(pose_shape_model, pose_shape_cfg,
     core = make_predict_core(
         pose_shape_model, pose_shape_cfg, smpl_model, edge_detect_model,
         renderer, hrnet_cfg, joints2Dvisib_threshold=joints2Dvisib_threshold,
-        num_uncertainty_samples=num_uncertainty_samples)
+        num_uncertainty_samples=num_uncertainty_samples, render_vis=main,
+        mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(0)
     proxy_size = pose_shape_cfg.DATA.PROXY_REP_SIZE
     wh = visualise_wh
@@ -437,6 +451,10 @@ def predict_pose_mf_shape_gaussian_net(pose_shape_model, pose_shape_cfg,
         out = core(hrnet_output["cropped_image"][None],
                    hrnet_output["joints2D"][None],
                    hrnet_output["joints2Dconfs"][None], generator=generator)
+        if not main:
+            results[image_fname] = _result({k: out[k].cpu().numpy() for k in (
+                "pose_rotmats_mode", "shape_mean", "cam", "per_vertex_3Dvar")}, 0)
+            continue
 
         host = {k: out[k].cpu().numpy() for k in (
             "front", "rgb_views", "cropped_vis", "cropped_joints2D",
@@ -569,6 +587,16 @@ class _Fetch:
         return {k: v.numpy() for k, v in self.host.items()}
 
 
+def _check_sample_mesh(mesh):
+    """Whether this rank writes (no mesh, or rank 0); predict meshes hold
+    the "sample" axis alone."""
+    if mesh is None:
+        return True
+    if mesh.shape["data"] != 1:
+        raise ValueError(f"predict shards the samples only; got {mesh.shape}")
+    return mesh.is_main
+
+
 def _list_inputs(image_dir):
     """The folder's inputs, sorted; refuses a .npy beside an image of the
     same stem (both would write <stem>.png)."""
@@ -604,7 +632,7 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
                            object_detect_fn=None, joints2Dvisib_threshold=0.75,
                            visualise_wh=512, save_vis=True,
                            visualise_uncropped=True,
-                           num_uncertainty_samples=50):
+                           num_uncertainty_samples=50, mesh=None):
     """Folder prediction with B images per batched HRNet and core call.
 
       * images are decoded on a thread and grouped by resolution into
@@ -617,10 +645,14 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
       * with save_vis=False no render is made, and the distribution and
         uncertainty outputs go to save_dir/outputs.npz (the serving path);
         with save_vis the 2 x 4 figure of each image is written and, with
-        `visualise_uncropped`, its front render pasted into the photo.
+        `visualise_uncropped`, its front render pasted into the photo;
+      * with a parallel `mesh` of the "sample" axis alone, the uncertainty
+        samples split over its ranks; rank 0 alone renders and writes.
 
     :return: {fname: {pose_mode, shape_mean, cam, per_vertex_uncertainty}}
     """
+    main = _check_sample_mesh(mesh)
+    save_vis = save_vis and main
     fnames = _list_inputs(image_dir)
     os.makedirs(save_dir, exist_ok=True)
     renderer = (TexturedIUVRenderer(device, img_wh=visualise_wh,
@@ -630,7 +662,8 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
     core = make_predict_core(
         pose_shape_model, pose_shape_cfg, smpl_model, edge_detect_model,
         renderer, hrnet_cfg, joints2Dvisib_threshold=joints2Dvisib_threshold,
-        num_uncertainty_samples=num_uncertainty_samples, render_vis=save_vis)
+        num_uncertainty_samples=num_uncertainty_samples, render_vis=save_vis,
+        mesh=mesh)
     hrnet_batch = make_hrnet_batch_predictor(
         hrnet, hrnet_cfg, device,
         bbox_scale_factor=pose_shape_cfg.DATA.BBOX_SCALE_FACTOR)
@@ -709,7 +742,7 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
               f"({steady:.1f} img/s steady-state after the first batch).",
               flush=True)
 
-    if not save_vis:
+    if not save_vis and main:
         np.savez(os.path.join(save_dir, "outputs.npz"),
                  fnames=np.asarray(sorted(results)),
                  **{k: np.stack([results[f][k] for f in sorted(results)])

@@ -22,8 +22,23 @@ make_train_step :186-337 as TrainStep, train_pose_mf_shape_gaussian_net
     every EPOCHS_PER_SAVE epochs.
 
 Every draw comes from a utils/random_draws.py source split as the JAX
-driver splits its keys; a run uses one torch.Generator on its device. The
-JAX package's mesh, jit and sharding are not ported (one device).
+driver splits its keys; a run uses one torch.Generator on its device.
+
+On a parallel Mesh (JAX's make_train_step(mesh=...) :186-267 and loop
+:405-477) every rank gets the same global batch from its loader and the
+same draws, and:
+  * runs the synthetic stage on the whole batch, then keeps its rows (the
+    synthetic stage is duplicated on every rank; JAX shards it);
+  * in stage 2 draws the sampler's proposals for the whole batch, keeps
+    its rows, runs the sampler on all N x 8 lanes of them, then keeps its
+    part of the N samples: only the SMPL of the samples is split over
+    "sample", as JAX constrains the samples only after the sampler;
+  * holds the 2D joints of its samples, and of the mode on sample index 0
+    alone, so each 2D-joint set of the global batch is counted once;
+  * back-propagates its share of the global loss (losses/) through the
+    predictor's DDP, whose BatchNorms are synced over "data";
+  * returns the global loss, terms and metric sums, all-reduced.
+Rank 0 alone writes the checkpoints and log.pkl; the others wait.
 """
 
 import numpy as np
@@ -33,10 +48,14 @@ from hierarchicalprobabilistic3dhuman_torch.data.loader import DataLoader
 from hierarchicalprobabilistic3dhuman_torch.losses import PoseMFShapeGaussianLoss
 from hierarchicalprobabilistic3dhuman_torch.metrics import (
     TrainingLossesAndMetricsTracker)
+from hierarchicalprobabilistic3dhuman_torch.metrics.train_loss_and_metrics_tracker import (
+    all_reduce_sums)
 from hierarchicalprobabilistic3dhuman_torch.metrics.metric_sums import (
     make_metric_sums_fn)
 from hierarchicalprobabilistic3dhuman_torch.ops.bingham_sampling import (
     pose_matrix_fisher_sampling, shape_gaussian_sampling)
+from hierarchicalprobabilistic3dhuman_torch.parallel.sharded_train import (
+    data_parallel, make_sharded_train_step)
 from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
     checkpoint_path, load_training_info_from_checkpoint,
     save_training_checkpoint, state_dict_on_cpu)
@@ -192,8 +211,14 @@ class TrainStep:
     `synth` and `forward_loss` are the stages, also called on their own
     (timings, tests). Calling the step returns (loss, metric_sums, terms)
     with metrics_to_track, else (loss, metric_data, targets, terms); the
-    tensors stay on the device.
+    tensors stay on the device. parallel/make_sharded_train_step sets
+    `mesh` (and `ddp`, the predictor's DistributedDataParallel, on a train
+    step): the step then takes the global batch and returns the global
+    loss, terms and sums (metric_data and targets stay this rank's rows).
     """
+
+    mesh = None
+    ddp = None
 
     def __init__(self, pose_shape_model, pose_shape_cfg, smpl_model, renderer,
                  edge_detect_model, loss_stage_cfg, optimizer, train,
@@ -217,7 +242,9 @@ class TrainStep:
         B = proxy.shape[0]
         N = self.num_samples
         smpl = self.smpl_model
-        pred = self.model(proxy)
+        mesh = self.mesh
+        mode_here = mesh is None or mesh.sample_index == 0
+        pred = (self.model if self.ddp is None else self.ddp)(proxy)
 
         pred_glob_rotmats = rot6d_to_rotmat(pred["glob"])
         mode = smpl(body_pose=pred["pose_rotmats_mode"],
@@ -230,34 +257,46 @@ class TrainStep:
         j2d_mode = orthographic_project(joints_coco, pred["cam"])   # [-1, 1]
 
         j2d_samples = None
+        j2d_mode_sets = j2d_mode[:, None] if mode_here else j2d_mode[:, None][:, :0]
         if "samples" in self.j2d_loss_on:
             draws_pose, draws_shape = draws.split(2)
             draws_eps, draws_w = draws_pose.split(2)
             J, lanes = pred["pose_params_U"].shape[1], N * OVERSAMPLING
+            shape_mean = pred["shape_mean"]
+            # The global batch's draws, in the 1-rank order; this rank's rows.
+            B_all = B if mesh is None else B * mesh.shape["data"]
+            eps = draws_eps.normal((B_all, J, lanes, 4))
+            w = draws_w.uniform((B_all, J, lanes))
+            shape_eps = draws_shape.normal((B_all, N, shape_mean.shape[1]))
+            if mesh is not None:
+                eps, w, shape_eps = (mesh.take_rows(t) for t in (eps, w, shape_eps))
             pose_samples = pose_matrix_fisher_sampling(
                 pred["pose_params_U"], pred["pose_params_S"],
                 pred["pose_params_V"], N, b=1.5,
-                oversampling_ratio=OVERSAMPLING,
-                eps=draws_eps.normal((B, J, lanes, 4)),
-                w=draws_w.uniform((B, J, lanes)))
-            shape_mean = pred["shape_mean"]
+                oversampling_ratio=OVERSAMPLING, eps=eps, w=w)
+            if mesh is not None:    # this rank's samples, after the sampler
+                own = mesh.samples(N)
+                pose_samples, shape_eps = pose_samples[:, own], shape_eps[:, own]
+            n = pose_samples.shape[1]
             shape_samples = shape_gaussian_sampling(
-                shape_mean, torch.exp(pred["shape_log_std"]), N,
-                eps=draws_shape.normal((B, N, shape_mean.shape[1])))
-            flat = smpl(body_pose=pose_samples.reshape(B * N, J, 3, 3),
+                shape_mean, torch.exp(pred["shape_log_std"]), n, eps=shape_eps)
+            flat = smpl(body_pose=pose_samples.reshape(B * n, J, 3, 3),
                         global_orient=pred_glob_rotmats[:, None, None]
-                        .expand(B, N, 1, 3, 3).reshape(B * N, 1, 3, 3),
-                        betas=shape_samples.reshape(B * N, -1),
+                        .expand(B, n, 1, 3, 3).reshape(B * n, 1, 3, 3),
+                        betas=shape_samples.reshape(B * n, -1),
                         pose2rot=False)["joints"][:, ALL_JOINTS_TO_COCO_MAP]
             flat = aa_rotate_translate_points(flat, X_AXIS, np.pi, ZERO_T)
-            cam_rep = pred["cam"].repeat_interleave(N, dim=0)
-            j2d_samples = orthographic_project(flat, cam_rep).reshape(B, N, -1, 2)
+            cam_rep = pred["cam"].repeat_interleave(n, dim=0)
+            j2d_samples = orthographic_project(flat, cam_rep).reshape(B, n, -1, 2)
             if self.j2d_loss_on == "means+samples":
-                j2d_for_loss = torch.cat([j2d_mode[:, None], j2d_samples], dim=1)
+                j2d_for_loss = torch.cat([j2d_mode_sets, j2d_samples], dim=1)
+                j2d_sets = N + 1
             else:
                 j2d_for_loss = j2d_samples
+                j2d_sets = N
         else:
-            j2d_for_loss = j2d_mode[:, None]
+            j2d_for_loss = j2d_mode_sets
+            j2d_sets = 1
 
         pred_dict = {
             "pose_params_F": pred["pose_params_F"],
@@ -271,7 +310,8 @@ class TrainStep:
             "joints2D": j2d_for_loss,
             "glob_rotmats": pred_glob_rotmats,
         }
-        loss, terms = self.criterion(targets, pred_dict)
+        loss, terms = self.criterion(targets, pred_dict, mesh=mesh,
+                                     j2d_sets=j2d_sets)
         metric_data = {
             "verts": mode["vertices"],
             "joints3D": joints_h36mlsp,
@@ -285,14 +325,19 @@ class TrainStep:
 
     def __call__(self, draws, pose, background, texture):
         draws_synth, draws_fwd = draws.split(2)
+        mesh = self.mesh
         # The synthetic batch carries no parameter dependence.
         with torch.no_grad():
             proxy, targets = self.synth(draws_synth, pose, background, texture)
+            if mesh is not None:
+                proxy, targets = mesh.take_rows(proxy), mesh.take_rows(targets)
         if self.train:
             self.model.train()
             self.optimizer.zero_grad(set_to_none=True)
             loss, metric_data, terms = self.forward_loss(draws_fwd, proxy, targets)
-            loss.backward()
+            # DDP averages the ranks' gradients; the shares' gradients sum
+            # to the global one.
+            (loss if self.ddp is None else loss * mesh.size).backward()
             self.optimizer.step()
         else:
             self.model.eval()
@@ -306,11 +351,18 @@ class TrainStep:
             reposed_mean = self.smpl_model(
                 betas=metric_data["shape_mean"])["vertices"]
             metric_data["reposed_verts"] = reposed_mean
+            loss = loss.detach()
+            if mesh is not None:
+                names = list(terms)
+                total = mesh.all_reduce(torch.stack([loss] + [terms[k] for k in names]))
+                loss, terms = total[0], dict(zip(names, total[1:]))
             if self.metric_sums is not None:
                 sums = self.metric_sums(metric_data, targets, reposed_mean,
                                         targets["reposed_verts"])
-                return loss.detach(), sums, terms
-        return loss.detach(), metric_data, targets, terms
+                if mesh is not None:
+                    sums = all_reduce_sums(mesh, sums)
+                return loss, sums, terms
+        return loss, metric_data, targets, terms
 
 
 def batch_to_device(batch, device):
@@ -340,7 +392,8 @@ def train_pose_mf_shape_gaussian_net(pose_shape_model,
                                      checkpoint=None,
                                      rng_seed=0,
                                      num_epochs=None,
-                                     loaders=None):
+                                     loaders=None,
+                                     mesh=None):
     """The training loop. The model's and the optimiser's state are resumed
     by the caller; `checkpoint` gives the epoch and best-weights
     bookkeeping. Returns the best weights' state dict (on the CPU).
@@ -348,10 +401,21 @@ def train_pose_mf_shape_gaussian_net(pose_shape_model,
     :param loaders: optional {"train": iterable, "val": iterable} of dict
         batches (pose/texture/background numpy arrays) in place of the
         default DataLoaders
+    :param mesh: optional parallel Mesh: every rank's loaders give the same
+        global batches, each step runs sharded (see the module docstring),
+        and rank 0 alone writes checkpoints and log.pkl
     """
     cfg = pose_shape_cfg
     save_val_metrics = list(save_val_metrics)
     num_epochs = num_epochs or cfg.TRAIN.NUM_EPOCHS
+    main = mesh is None or mesh.is_main
+    ddp = None
+    if mesh is not None:
+        n_data = mesh.shape["data"]
+        assert cfg.TRAIN.BATCH_SIZE % n_data == 0, (
+            f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} must divide the mesh "
+            f"data axis ({n_data})")
+        ddp = data_parallel(pose_shape_model, mesh)
     if loaders is None:
         loaders = {
             "train": DataLoader(train_dataset, batch_size=cfg.TRAIN.BATCH_SIZE,
@@ -376,7 +440,7 @@ def train_pose_mf_shape_gaussian_net(pose_shape_model,
     tracker = TrainingLossesAndMetricsTracker(
         metrics_to_track=list(metrics), img_wh=cfg.DATA.PROXY_REP_SIZE,
         log_save_path=logs_save_path, load_logs=load_logs,
-        current_epoch=current_epoch)
+        current_epoch=current_epoch, save_logs=main)
 
     steps = {}
     for stage, stage_cfg in ((1, cfg.LOSS.STAGE1), (2, cfg.LOSS.STAGE2)):
@@ -384,10 +448,13 @@ def train_pose_mf_shape_gaussian_net(pose_shape_model,
         if stage == 2 and "joints2Dsamples-L2E" not in stage_metrics:
             stage_metrics.append("joints2Dsamples-L2E")
         for split in ("train", "val"):
-            steps[(stage, split)] = TrainStep(
+            step = TrainStep(
                 pose_shape_model, cfg, smpl_model, renderer, edge_detect_model,
                 stage_cfg, optimizer, train=(split == "train"),
                 metrics_to_track=stage_metrics)
+            if mesh is not None:
+                step = make_sharded_train_step(step, mesh, ddp)
+            steps[(stage, split)] = step
 
     draws = Draws(torch.Generator(device=device).manual_seed(rng_seed))
     current_loss_stage = 1
@@ -434,7 +501,7 @@ def train_pose_mf_shape_gaussian_net(pose_shape_model,
             best_epoch = epoch
             print("Best model weights updated:", best_epoch_val_metrics)
 
-        if epoch % cfg.TRAIN.EPOCHS_PER_SAVE == 0:
+        if epoch % cfg.TRAIN.EPOCHS_PER_SAVE == 0 and main:
             save_training_checkpoint(
                 checkpoint_path(model_save_dir, epoch),
                 epoch=epoch, best_epoch=best_epoch,
@@ -444,6 +511,8 @@ def train_pose_mf_shape_gaussian_net(pose_shape_model,
                 optimiser_state_dict=optimizer.state_dict())
             print(f"Model saved! Best val metrics: {best_epoch_val_metrics} "
                   f"in epoch {best_epoch}")
+        if mesh is not None:
+            mesh.barrier()
 
     print("Training completed. Best val metrics:", best_epoch_val_metrics)
     return best_model_wts

@@ -4,7 +4,11 @@ error, in torch.
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/utils/sampling_utils.py
 (compute_vertex_uncertainties_by_sampling :21 on the predict path, which
 samples poses and keeps the mean shape (use_mean_shape=True there), and
-joints2D_error_sorted_verts_sampling :84).
+joints2D_error_sorted_verts_sampling :84). On a parallel Mesh the SMPL of
+the samples splits over "sample" after the sampler has run on every lane
+(JAX constrains pose_samples only after pose_matrix_fisher_sampling,
+:56-70): the mean vertices and the distances are summed over "sample", and
+the sample meshes gathered back.
 """
 
 import numpy as np
@@ -26,14 +30,17 @@ def compute_vertex_uncertainties_by_sampling(pose_U, pose_S, pose_V,
                                              shape_mean, glob_rotmats,
                                              num_samples, smpl, b=1.5,
                                              oversampling_ratio=8,
-                                             generator=None, eps=None, w=None):
+                                             generator=None, eps=None, w=None,
+                                             mesh=None):
     """Per-vertex mean distance-from-mean over N pose samples at the mean
-    shape; the (B x N) SMPL evaluations run as one batched LBS.
+    shape; the (B x N) SMPL evaluations run as one batched LBS, on a mesh
+    this rank's part of the N.
 
     :param pose_U/S/V: (B, 23, 3, 3) / (B, 23, 3) / (B, 23, 3, 3)
     :param shape_mean: (B, num_betas)
     :param glob_rotmats: (B, 3, 3)
     :param eps, w: optional pre-drawn sampler draws (see bingham_sampling)
+    :param mesh: optional parallel Mesh whose "sample" axis splits the N
     :return: avg_distance (B, 6890), vertices_samples (B, N, 6890, 3),
              joints_samples (B, N, 90, 3)
     """
@@ -42,16 +49,28 @@ def compute_vertex_uncertainties_by_sampling(pose_U, pose_S, pose_V,
         pose_U, pose_S, pose_V, num_samples, b=b,
         oversampling_ratio=oversampling_ratio, generator=generator,
         eps=eps, w=w)
-    flat_shape = shape_mean[:, None].expand(B, num_samples, shape_mean.shape[-1])
-    flat_glob = glob_rotmats[:, None].expand(B, num_samples, 3, 3)
-    out = smpl(body_pose=pose_samples.reshape(B * num_samples, 23, 3, 3),
-               global_orient=flat_glob.reshape(B * num_samples, 1, 3, 3),
-               betas=flat_shape.reshape(B * num_samples, -1), pose2rot=False)
-    verts = out["vertices"].reshape(B, num_samples, -1, 3)
-    joints = out["joints"].reshape(B, num_samples, -1, 3)
-    mean_verts = verts.mean(dim=1, keepdim=True)
-    avg_distance = torch.linalg.vector_norm(verts - mean_verts, dim=-1).mean(dim=1)
-    return avg_distance, verts, joints
+    if mesh is not None:
+        pose_samples = pose_samples[:, mesh.samples(num_samples)]
+    n = pose_samples.shape[1]
+    flat_shape = shape_mean[:, None].expand(B, n, shape_mean.shape[-1])
+    flat_glob = glob_rotmats[:, None].expand(B, n, 3, 3)
+    out = smpl(body_pose=pose_samples.reshape(B * n, 23, 3, 3),
+               global_orient=flat_glob.reshape(B * n, 1, 3, 3),
+               betas=flat_shape.reshape(B * n, -1), pose2rot=False)
+    verts = out["vertices"].reshape(B, n, -1, 3)
+    joints = out["joints"].reshape(B, n, -1, 3)
+    if mesh is None:
+        mean_verts = verts.mean(dim=1, keepdim=True)
+        avg_distance = torch.linalg.vector_norm(verts - mean_verts,
+                                                dim=-1).mean(dim=1)
+        return avg_distance, verts, joints
+    mean_verts = mesh.all_reduce(verts.sum(dim=1, keepdim=True), "sample") / num_samples
+    avg_distance = mesh.all_reduce(
+        torch.linalg.vector_norm(verts - mean_verts, dim=-1).sum(dim=1),
+        "sample") / num_samples
+    sizes = mesh.sample_sizes(num_samples)
+    return (avg_distance, mesh.all_gather(verts, "sample", dim=1, sizes=sizes),
+            mesh.all_gather(joints, "sample", dim=1, sizes=sizes))
 
 
 def joints2D_error_sorted_verts_sampling(pred_vertices_samples,

@@ -58,17 +58,18 @@ def test_cuda_is_never_replaced_by_the_cpu(tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port (the evaluation and training slices' and
-    the checkpoint codec included), the three entry scripts and
-    chip_smoke.py, imported in a fresh interpreter, load neither
-    jax/flax/optax/msgpack nor the JAX package."""
+    """Every module of the port (the evaluation and training slices', the
+    checkpoint codec and the parallel layer included), the entry scripts
+    with run_parity_torch.py and chip_smoke.py, imported in a fresh
+    interpreter, load neither jax/flax/optax/msgpack nor the JAX
+    package."""
     code = f"""
 import importlib, pkgutil, sys
 sys.path.insert(0, {REPO!r})
 import {PORT}
 names = [m.name for m in pkgutil.walk_packages({PORT}.__path__, "{PORT}.")]
 for name in names + ["run_predict_torch", "run_evaluate_torch",
-                     "run_train_torch", "chip_smoke"]:
+                     "run_train_torch", "run_parity_torch", "chip_smoke"]:
     importlib.import_module(name)
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "optax", "msgpack",
@@ -89,10 +90,41 @@ training = ["cli.train", "train.train_pose_mf_shape_gaussian_net",
             "metrics.train_loss_and_metrics_tracker", "runtime.checkpointing",
             "data.on_the_fly_smpl_train_dataset"]
 checkpoints = ["runtime.flax_msgpack", "models.resnet", "models.weights"]
-missing = [m for m in evaluation + training + checkpoints
+parallel = ["parallel", "parallel.mesh", "parallel.sharded_train",
+            "parallel.launch"]
+missing = [m for m in evaluation + training + checkpoints + parallel
            if "{PORT}." + m not in names]
 assert len(names) >= 50 and not missing and not bad, (missing, bad)
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_more_cards_than_visible_raise(tmp_path, monkeypatch):
+    """--num_devices 2 where torch sees one card: each CLI raises before it
+    starts a rank."""
+    from hierarchicalprobabilistic3dhuman_torch.cli import evaluate, predict, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    match = "2 cuda devices were asked for but torch sees 1"
+    with pytest.raises(RuntimeError, match=match):
+        train.main(["-E", str(tmp_path / "exp"), "--num_devices", "2"])
+    assert not (tmp_path / "exp").exists()
+    with pytest.raises(RuntimeError, match=match):
+        evaluate.main(["--dataset", "ssp3d", "--num_devices", "2",
+                       "--batch_size", "2"])
+    with pytest.raises(RuntimeError, match=match):
+        predict.main(["--image_dir", str(tmp_path), "--save_dir", str(tmp_path),
+                      "--num_devices", "2"])
+
+
+@pytest.mark.parametrize("flags", [["--num_devices", "2", "--batch_size", "3"],
+                                   ["--num_devices", "4", "--sample_parallel", "2",
+                                    "--batch_size", "1"]])
+def test_eval_batch_must_divide_data_axis(flags):
+    """A batch size that does not divide the data axis raises (JAX's CLI
+    quietly evaluates on one device instead)."""
+    from hierarchicalprobabilistic3dhuman_torch.cli import evaluate
+    with pytest.raises(ValueError, match="must divide the mesh data axis"):
+        evaluate.main(["--dataset", "ssp3d", "--device", "cpu", *flags])

@@ -283,11 +283,12 @@ def test_predict_hrnet_matches_jax():
     assert port["cropped_image"].shape == (3, 384, 288) and crop_diff <= 1e-5
 
 
-def test_cli_detector_choices(capsys, tmp_path):
+def test_cli_detector_choices(capsys, tmp_path, monkeypatch):
     """auto takes the keypoint bootstrap with JAX's NOTE; maskrcnn is
     refused with a clear error; cropped photos and 'none' take no detector;
     reference checkpoints load and a predictor checkpoint selects the
-    LAPACK-sign SVD; --num_devices > 1, not ported yet, is refused, never
+    LAPACK-sign SVD; --num_devices > 1 goes to the ranks' launcher with
+    every rank on the "sample" axis (JAX's cli/predict.py:194-202), never
     ignored."""
     def args(*extra):
         return build_parser().parse_args(["-I", "x", "-S", "y", *extra])
@@ -325,8 +326,12 @@ def test_cli_detector_choices(capsys, tmp_path):
             got = built[loaded].state_dict()
             assert all(torch.equal(got[k], v) for k, v in
                        source.state_dict().items()), extra
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        main(["-I", "x", "-S", "y", "--device", "cpu", "--num_devices", "2"])
+    from hierarchicalprobabilistic3dhuman_torch.parallel import launch
+    launched = []
+    monkeypatch.setattr(launch, "launch", lambda run, a, sample_parallel: (
+        launched.append((a.num_devices, sample_parallel))))
+    main(["-I", "x", "-S", "y", "--device", "cpu", "--num_devices", "2"])
+    assert launched == [(2, 2)]
 
 
 def test_cli_on_an_uncropped_photo(tmp_path):
