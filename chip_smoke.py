@@ -7,8 +7,9 @@ Phases (any failure exits non-zero before the final line):
   1. build the CUDA rasterizer from csrc/ and print the card's name and
      power limit;
   2. hold the rasterizer kernel against its plain torch version on the card
-     (mask and depth bit-equal, attrs within 1e-5), and the face_boxes kernel
-     that packs its fourth table against its own (boxes equal): 6 synthetic-SMPL meshes
+     (mask and depth bit-equal, attrs within 1e-5), and the pack_faces kernel
+     that packs its four tables against its own (every table bit-equal to
+     the torch ops on the card): 6 synthetic-SMPL meshes
      at 512^2, A=12, as the renderer packs them (run twice: the outputs must
      be identical); a hand-made scene of shared edges and equal-depth ties
      (all outputs equal); a scene of slivers, off-screen faces and a face
@@ -27,8 +28,12 @@ Phases (any failure exits non-zero before the final line):
      and evaluation shapes beside its bound at each (the bytes it must move
      and the pixel-face tests the function needs); the device launches of
      one kernel call, counted from a profile; the rasterize step (tables +
-     kernel) and its parts on the host's clock and the card's, at the
-     predict shape; and the kernel's plain version at the predict shape;
+     kernel) and its parts (the pack_faces kernel, its plain version, the
+     rasterizer) on the host's clock and the card's, with their device
+     launches, at the predict shape (and at the eval and train shapes in
+     6e and 7d); the pack_faces kernel beside its bound and its plain
+     version at each path's shape (here, 5f, 6e, 7d, 8d, 9f, 10b); and the
+     rasterizer's plain version at the predict shape;
   5. the batched and figure paths, each driven with the launch counts set
      to 0 just before it and read just after: (a) both kernels against their
      plain versions on the tables of the batched figure's render (4 images,
@@ -182,10 +187,13 @@ PEAK_F32_OPS_PER_S = 67e12
 OPS_PER_TEST = 19
 # Geometry rows of the packed tables that the rasterizer reads (of 16).
 GEOM_ROWS_READ = 9
-# float32 operations per face of the face_boxes rule: denom 7, degenerate 2,
-# scale 3, rho 5, two plane errors 19 each and their sum, E 9, and per axis
-# min/max 4, margin 8, first and last 6, their NaN tests and clamps 6.
-OPS_PER_FACE_BOX = 113
+# float32 operations per face of the pack_faces kernel, counted from
+# csrc/rasterize.cu. The box rule 113: denom 7, degenerate 2, scale 3, rho 5,
+# two plane errors 19 each and their sum, E 9, and per axis min/max 4,
+# margin 8, first and last 6, their NaN tests and clamps 6. The planes 36:
+# edges 10, reciprocal 2, six rows 12, depth differences 2, the depth plane
+# 10. The chunk ranges 8: 4 substitutions and 4 reduction steps.
+OPS_PER_FACE_PACK = 113 + 36 + 8
 # Seeds of the predict core's card-vs-CPU check, and the least share of the
 # pixels covered on both devices whose colours agree to 1e-3. Over seeds
 # 0-11 on an H100 80GB HBM3 (700 W) the share was 0.999032-0.999861, 1 to 7
@@ -244,6 +252,33 @@ def median_ms(fn, repeats=5, inner=1):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls=20, repeats=5):
+    """The card's own time per call of fn(): `calls` calls captured in one
+    CUDA graph, median over `repeats` replays of CUDA-event time, after one
+    warm-up call. The host's enqueue time, which bounds median_ms for a
+    kernel shorter than its wrapper's call, does not show."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # thread_local: another thread's CUDA calls (a path's loader or decode
+    # thread) do not break this thread's capture.
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -582,34 +617,53 @@ def box_tests(face_boxes):
                 * torch.clamp(b[..., 3] - b[..., 2] + 1, min=0)).sum())
 
 
-def boxes_differ(tag, name, scene):
-    """Largest difference of the face_boxes kernel's boxes from its plain
-    version's on a scene (they must be equal, and the scene's tables, packed
-    on the card, hold them)."""
+def same_bits(a, b):
+    """Elementwise: a and b hold the same bits, a NaN equal to any NaN."""
+    if a.is_floating_point():
+        return (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+    return a == b
+
+
+def tables_differ(tag, name, scene):
+    """The pack_faces kernel's four tables against its plain version's (the
+    torch ops on the card) on a scene's inputs: tolerance 0, bit for bit (a
+    NaN equal to any NaN); the scene's own tables, packed by the kernel,
+    must be equal to them too.
+
+    :return: the largest absolute difference over the four tables
+    """
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        face_boxes_cuda, face_boxes_plain, face_vertices)
-    fv, _ = face_vertices(scene.screen, scene.faces)
-    hw = scene.tables.image_hw
-    kb, pb = face_boxes_cuda(fv, hw), face_boxes_plain(fv, hw)
-    diff = int((kb - pb).abs().max())
-    log(f"[{tag}] {name} scene, face_boxes {tuple(kb.shape)}: max abs "
-        f"diff from the plain version {diff} (tol 0)")
-    if diff or not torch.equal(kb, scene.tables.face_boxes):
-        raise AssertionError(f"face_boxes kernel disagrees with its plain "
-                             f"version on the {name} scene")
-    return diff
+        FaceTables, pack_face_tables_cuda, pack_face_tables_plain)
+    inputs = (scene.screen, scene.faces, scene.vert_attrs, scene.tables.image_hw)
+    kernel = pack_face_tables_cuda(*inputs)
+    plain = pack_face_tables_plain(*inputs)
+    worst, unequal = 0.0, []
+    for field, k, p, own in zip(FaceTables._fields, kernel[:4], plain[:4],
+                                scene.tables[:4]):
+        same = same_bits(k, p)
+        diff = (k.double() - p.double()).abs().nan_to_num(nan=float("inf"))
+        worst = max(worst, float(torch.where(same, 0.0, diff).max()))
+        if not bool(same.all()) or not bool(same_bits(k, own).all()):
+            unequal.append(field)
+    log(f"[{tag}] {name} scene, pack_face_tables {tuple(kernel.geom_t.shape)}: "
+        f"max abs diff of the four tables from the plain version {worst} "
+        f"(tol 0, bit for bit); unequal tables {unequal}")
+    if unequal:
+        raise AssertionError(f"pack_faces kernel disagrees with its plain "
+                             f"version on the {name} scene: {unequal}")
+    return worst
 
 
 def hold_to_plain(tag, name, scene):
-    """Both kernels against their plain versions on a scene: mask and depth
-    bit-equal, attrs within 1e-5, boxes equal.
+    """Both kernels against their plain versions on a scene: the four
+    tables bit-equal, mask and depth bit-equal, attrs within 1e-5.
 
-    :return: covered pixels, attrs max abs diff, boxes max abs diff, the
+    :return: covered pixels, attrs max abs diff, tables max abs diff, the
         kernel's outputs
     """
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
         rasterize_packed_cuda, rasterize_packed_plain)
-    box_diff = boxes_differ(tag, name, scene)
+    table_diff = tables_differ(tag, name, scene)
     ka, kd, km = rasterize_packed_cuda(scene.tables)
     pa, pd, pm = rasterize_packed_plain(scene.tables)
     torch.cuda.synchronize()
@@ -622,24 +676,24 @@ def hold_to_plain(tag, name, scene):
     if mask_diff or not depth_equal or not attr_err <= 1e-5:
         raise AssertionError(f"kernel disagrees with its plain version on "
                              f"the {name} scene")
-    return int(km.sum()), attr_err, box_diff, (ka, kd, km)
+    return int(km.sum()), attr_err, table_diff, (ka, kd, km)
 
 
 def phase_kernel_vs_plain(device):
     """:return: the predict, eval and train scenes with their covered
-    pixels, the largest attrs difference and the largest box difference"""
+    pixels, the largest attrs difference and the largest table difference"""
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
         rasterize_packed_cuda, rasterize_packed_plain)
 
     scenes = {}
     worst = 0.0
-    worst_box = 0
+    worst_table = 0
     for name, build in (("predict", predict_scene), ("sliver", sliver_scene),
                         ("eval", eval_scene)):
         scene = build(device)
-        covered, attr_err, box_diff, kernel_out = hold_to_plain(
+        covered, attr_err, table_diff, kernel_out = hold_to_plain(
             "phase 2", name, scene)
-        worst, worst_box = max(worst, attr_err), max(worst_box, box_diff)
+        worst, worst_table = max(worst, attr_err), max(worst_table, table_diff)
         if name == "predict":
             again = rasterize_packed_cuda(scene.tables)
             torch.cuda.synchronize()
@@ -649,8 +703,8 @@ def phase_kernel_vs_plain(device):
                 raise AssertionError("two runs on the same tables differ")
         scenes[name] = (scene, covered)
 
-    worst_box = max(worst_box, boxes_differ("phase 2", "triangle",
-                                            triangle_scene(device)))
+    worst_table = max(worst_table, tables_differ("phase 2", "triangle",
+                                                 triangle_scene(device)))
     tri = triangle_scene(device).tables
     ta, td, tm = rasterize_packed_cuda(tri)
     qa, qd, qm = rasterize_packed_plain(tri)
@@ -661,7 +715,7 @@ def phase_kernel_vs_plain(device):
     if not ok or ta[0, 35, 10].tolist() != [1.0, 0.0, 0.0]:
         raise AssertionError("kernel disagrees on shared edges / depth ties")
     del scenes["sliver"]
-    return scenes, worst, worst_box
+    return scenes, worst, worst_table
 
 
 def run_path(tag, what, fn, expect):
@@ -671,14 +725,14 @@ def run_path(tag, what, fn, expect):
     :return: fn's result, the counts
     """
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        face_boxes_cuda, rasterize_packed_cuda)
-    rasterize_packed_cuda.launches = face_boxes_cuda.launches = 0
+        pack_face_tables_cuda, rasterize_packed_cuda)
+    rasterize_packed_cuda.launches = pack_face_tables_cuda.launches = 0
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"rasterize": rasterize_packed_cuda.launches,
-                "face_boxes": face_boxes_cuda.launches}
+                "pack_face_tables": pack_face_tables_cuda.launches}
     log(f"[{tag}] {what}: {wall:.2f} s; kernel launches {launches}, "
         f"expected {expect} of each")
     if set(launches.values()) != {expect}:
@@ -1018,54 +1072,90 @@ def host_and_card_ms(fn, repeats=5, inner=20):
 
 def time_raster_step(name, scene, tag="phase 4"):
     """The rasterize step as the renderer runs it, tables and kernels, and
-    its parts: all four tables (pack_face_tables), the fourth alone from its
-    kernel and from its plain version, and the rasterizer on packed tables."""
+    its parts: the four tables from the pack_faces kernel and from its plain
+    version (the torch ops on the card, the pack before the kernel), and the
+    rasterizer on packed tables.
+
+    :return: per part, the host's enqueue ms, the ms until the card has
+        finished, the device launches and busy ms of one profiled call
+    """
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        face_boxes_cuda, face_boxes_plain, face_vertices, pack_face_tables,
-        rasterize, rasterize_packed_cuda)
-    inputs = (scene.screen, scene.faces, scene.vert_attrs)
-    hw = scene.tables.image_hw
-    fv, _ = face_vertices(scene.screen, scene.faces)
+        pack_face_tables, pack_face_tables_plain, rasterize,
+        rasterize_packed_cuda)
+    inputs = (scene.screen, scene.faces, scene.vert_attrs, scene.tables.image_hw)
+    out = {}
     for part, fn in (
-            ("pack_face_tables", lambda: pack_face_tables(*inputs, hw)),
-            ("face_boxes_cuda", lambda: face_boxes_cuda(fv, hw)),
-            ("face_boxes_plain", lambda: face_boxes_plain(fv, hw)),
+            ("pack_face_tables", lambda: pack_face_tables(*inputs)),
+            ("pack_face_tables_plain", lambda: pack_face_tables_plain(*inputs)),
             ("rasterize_packed_cuda", lambda: rasterize_packed_cuda(scene.tables)),
-            ("rasterize (tables + kernels)", lambda: rasterize(*inputs, hw))):
+            ("rasterize", lambda: rasterize(*inputs))):
         enqueue_ms, finished_ms = host_and_card_ms(fn)
         p = device_profile(fn)
         log(f"[{tag}] rasterize step {name}, {part}: host enqueues it in "
             f"{enqueue_ms:.4f} ms, finished on the card after "
             f"{finished_ms:.4f} ms; {p['launches']} device launches, device "
             f"busy {p['device_ms']:.4f} ms")
+        out[part] = {"enqueue_ms": enqueue_ms, "finished_ms": finished_ms,
+                     "launches": p["launches"], "busy_ms": p["device_ms"]}
+    return out
 
 
-def time_face_boxes(scenes, tag="phase 4"):
-    """The face_boxes kernel at the three shapes beside its bound (6
-    coordinates read and 4 indices written per face over the memory rate;
-    OPS_PER_FACE_BOX operations per face over the float32 rate), and its
-    plain version at the predict shape."""
+def pack_bound(scene):
+    """The least time the card could take for one pack_face_tables call on a
+    scene's inputs: the four tables written (per face 64 B of geometry, 12A
+    B of attributes, 16 B of box; 16 B per chunk), `faces` read once and
+    each mesh's vertices and attributes that the faces use read once, over
+    the memory rate; or OPS_PER_FACE_PACK operations a face over the float32
+    rate."""
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        face_boxes_cuda, face_boxes_plain, face_vertices)
+        FACE_CHUNK, GEOM_ROWS)
+    B, _, Fp = scene.tables.geom_t.shape
+    A = scene.tables.face_attrs.shape[-1] // 3
+    faces = scene.faces
+    used = torch.unique(faces)
+    if Fp > faces.shape[0]:                  # padding faces read vertex 0
+        used = torch.unique(torch.cat([used, used.new_zeros(1)]))
+    bytes_moved = (B * Fp * (4 * GEOM_ROWS + 12 * A + 16)
+                   + B * (Fp // FACE_CHUNK) * 16 + 8 * faces.numel()
+                   + B * used.numel() * 4 * (3 + A))
+    ops = B * Fp * OPS_PER_FACE_PACK
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+    return {"ms": max(bytes_ms, ops_ms), "bytes": bytes_moved,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_pack(scenes, tag="phase 4"):
+    """The pack_faces kernel on each scene's inputs beside its bound
+    (pack_bound): its wrapper's calls, median of 5 x 20 in a row, and the
+    card's own time, median of 5 replays of 20 calls in a CUDA graph
+    (graph_ms); and its plain version (the torch ops on the card), median
+    of 5 x 5.
+
+    :return: per scene kernel_ms, device_ms, bound_ms, bound_by, plain_ms
+    """
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        pack_face_tables_cuda, pack_face_tables_plain)
     out = {}
     for name, (scene, _) in scenes.items():
-        fv, _ = face_vertices(scene.screen, scene.faces)
-        hw = scene.tables.image_hw
-        n_faces = fv.shape[0] * fv.shape[1]
-        ms = median_ms(lambda: face_boxes_cuda(fv, hw), inner=20)
-        bytes_ms = n_faces * (6 * 4 + 4 * 4) / PEAK_BYTES_PER_S * 1e3
-        ops_ms = n_faces * OPS_PER_FACE_BOX / PEAK_F32_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        log(f"[{tag}] face_boxes {name}, {n_faces} faces: kernel {ms:.4f} "
-            f"ms; bound {bound_ms:.5f} ms (bytes {n_faces * 40} -> "
-            f"{bytes_ms:.5f} ms, operations -> {ops_ms:.5f} ms); kernel at "
-            f"{ms / bound_ms:.1f}x its bound")
-        out[name] = {"kernel_ms": ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        if name == "predict":
-            out["plain_ms"] = median_ms(lambda: face_boxes_plain(fv, hw), inner=20)
-            log(f"[{tag}] face_boxes predict: plain version "
-                f"{out['plain_ms']:.4f} ms")
+        inputs = (scene.screen, scene.faces, scene.vert_attrs,
+                  scene.tables.image_hw)
+        ms = median_ms(lambda: pack_face_tables_cuda(*inputs), inner=20)
+        device_ms = graph_ms(lambda: pack_face_tables_cuda(*inputs))
+        plain_ms = median_ms(lambda: pack_face_tables_plain(*inputs), inner=5)
+        bound = pack_bound(scene)
+        B, _, Fp = scene.tables.geom_t.shape
+        log(f"[{tag}] pack_face_tables {name}, {B} x {Fp} faces, A = "
+            f"{scene.tables.face_attrs.shape[-1] // 3}: kernel {ms:.4f} ms a "
+            f"call, {device_ms:.4f} ms on the card (graph replay); bound "
+            f"{bound['ms']:.5f} ms (bytes {bound['bytes']} -> "
+            f"{bound['bytes_ms']:.5f} ms, operations -> {bound['ops_ms']:.5f} "
+            f"ms); at {ms / bound['ms']:.1f}x / {device_ms / bound['ms']:.1f}x "
+            f"its bound; plain version {plain_ms:.4f} ms")
+        out[name] = {"kernel_ms": ms, "device_ms": device_ms,
+                     "bound_ms": bound["ms"], "bound_by": bound["by"],
+                     "plain_ms": plain_ms}
     return out
 
 
@@ -1126,8 +1216,8 @@ def phase_timing(argv, scenes):
         out[name] = time_rasterizer("phase 4", name, scene, covered)
     predict = scenes["predict"][0]
     out["device_launches_per_call"] = rasterizer_device_launches(predict.tables)
-    time_raster_step("predict", scenes["predict"][0])
-    out["face_boxes"] = time_face_boxes(scenes)
+    out["raster_step"] = time_raster_step("predict", scenes["predict"][0])
+    out["pack"] = time_pack(scenes)
     out["plain_ms"] = median_ms(lambda: rasterize_packed_plain(predict.tables))
     log(f"[phase 4] rasterize predict: plain version {out['plain_ms']:.2f} ms")
     return out
@@ -1374,12 +1464,12 @@ def phase_batched(workdir):
     kwargs = build_predictor(build_parser().parse_args(
         base + ["--save_dir", os.path.join(workdir, "per_image12")]))
     scenes, stack, hr = figure_scenes(kwargs, image_dir)
-    readings["attr_err"] = readings["box_err"] = 0
+    readings["attr_err"] = readings["table_err"] = 0
     new_scenes = {}
     for name, scene in scenes.items():
-        covered, attr_err, box_err, _ = hold_to_plain("phase 5a", name, scene)
+        covered, attr_err, table_err, _ = hold_to_plain("phase 5a", name, scene)
         readings["attr_err"] = max(readings["attr_err"], attr_err)
-        readings["box_err"] = max(readings["box_err"], box_err)
+        readings["table_err"] = max(readings["table_err"], table_err)
         new_scenes[name] = (scene, covered)
     lap("phase 5a")
 
@@ -1455,7 +1545,7 @@ def phase_batched(workdir):
     # chunk's stages.
     readings["kernels"] = {name: time_rasterizer("phase 5f", name, scene, cov)
                            for name, (scene, cov) in new_scenes.items()}
-    readings["face_boxes"] = time_face_boxes(new_scenes, tag="phase 5f")
+    readings["pack"] = time_pack(new_scenes, tag="phase 5f")
     del new_scenes, scenes
     kwargs["save_dir"] = os.path.join(workdir, "timing")
     for b in (1, BATCH, 8):
@@ -1679,7 +1769,7 @@ def phase_eval(workdir, device):
         build_evaluator, build_parser, main)
     from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import svd3x3_gesdd
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        face_boxes_plain, face_vertices, rasterize_packed_plain)
+        rasterize_packed_plain)
 
     readings = {"launches": {}}
     lap_start = [time.perf_counter()]
@@ -1711,14 +1801,14 @@ def phase_eval(workdir, device):
     recorder = RecordingRenderer(silhouettes)
     make_step(card, renderer=recorder)(*batch_args(device))
     scenes = {}
-    readings["attr_err"] = readings["box_err"] = 0
+    readings["attr_err"] = readings["table_err"] = 0
     for name, (verts, cam_t, scale) in zip(("eval_mode", "eval_samples"),
                                            recorder.calls):
         screen, attrs = silhouettes.raster_inputs(verts, cam_t, scale)
         scene = make_scene(screen, silhouettes.faces, attrs, (wh, wh))
-        covered, attr_err, box_err, _ = hold_to_plain("phase 6a", name, scene)
+        covered, attr_err, table_err, _ = hold_to_plain("phase 6a", name, scene)
         readings["attr_err"] = max(readings["attr_err"], attr_err)
-        readings["box_err"] = max(readings["box_err"], box_err)
+        readings["table_err"] = max(readings["table_err"], table_err)
         scenes[name] = (scene, covered)
         # The plain version, warm from the comparison: one call, as it takes
         # seconds at these shapes (it tests every pixel against every face).
@@ -1838,13 +1928,10 @@ def phase_eval(workdir, device):
     model.svd_impl = "lapack"
     readings["kernels"] = {name: time_rasterizer("phase 6e", name, scene, cov)
                            for name, (scene, cov) in scenes.items()}
-    readings["face_boxes"] = time_face_boxes(scenes, tag="phase 6e")
-    for name, (scene, _) in scenes.items():
-        fv, _ = face_vertices(scene.screen, scene.faces)
-        readings["face_boxes"][name]["plain_ms"] = median_ms(
-            lambda: face_boxes_plain(fv, scene.tables.image_hw), inner=5)
-        log(f"[phase 6e] face_boxes {name}: plain version "
-            f"{readings['face_boxes'][name]['plain_ms']:.4f} ms")
+    readings["pack"] = time_pack(scenes, tag="phase 6e")
+    readings["raster_step"] = {
+        name: time_raster_step(name, scene, tag="phase 6e")
+        for name, (scene, _) in scenes.items()}
     lap("phase 6e")
 
     # (f) the LAPACK-sign SVD on the card against the port on the CPU.
@@ -2234,8 +2321,8 @@ def phase_train(workdir, device):
 
     readings = {}
     scene = train_scene(device)
-    covered, attr_err, box_err, _ = hold_to_plain("phase 7a", "train", scene)
-    readings.update(attr_err=attr_err, box_err=box_err)
+    covered, attr_err, table_err, _ = hold_to_plain("phase 7a", "train", scene)
+    readings.update(attr_err=attr_err, table_err=table_err)
     lap("phase 7a")
 
     exp = os.path.join(workdir, "train_experiment")
@@ -2258,13 +2345,12 @@ def phase_train(workdir, device):
 
     readings["steps"] = time_train_steps(device)
     readings["kernel"] = time_rasterizer("phase 7d", "train", scene, covered)
-    readings["face_boxes"] = time_face_boxes({"train": (scene, covered)},
-                                             tag="phase 7d")["train"]
+    readings["pack"] = time_pack({"train": (scene, covered)},
+                                 tag="phase 7d")["train"]
     readings["plain_ms"] = once_ms(lambda: rasterize_packed_plain(scene.tables))
-    readings["face_boxes_plain_ms"] = time_face_boxes_plain(scene)
     log(f"[phase 7d] rasterize train: plain version {readings['plain_ms']:.2f} "
-        f"ms (one call), face_boxes plain {readings['face_boxes_plain_ms']:.4f} ms")
-    time_raster_step("train", scene, tag="phase 7d")
+        f"ms (one call)")
+    readings["raster_step"] = time_raster_step("train", scene, tag="phase 7d")
     lap("phase 7d")
     return readings
 
@@ -2475,7 +2561,7 @@ def phase_resnet50(workdir, device):
     check_experiment("phase 8a", exp, epochs=2)
     (recorder,) = made
     scene = recorder.scene()
-    covered, readings["attr_err"], readings["box_err"], _ = hold_to_plain(
+    covered, readings["attr_err"], readings["table_err"], _ = hold_to_plain(
         "phase 8a", "train_resnet50", scene)
     lap("phase 8a")
 
@@ -2566,6 +2652,8 @@ def phase_resnet50(workdir, device):
         log(f"[phase 8d] load {name} ({sizes[name]} bytes): median {ms:.1f} ms "
             f"of 3 (host clock, to state dicts on the CPU)")
     readings["kernel"] = time_rasterizer("phase 8d", "train_resnet50", scene, covered)
+    readings["pack"] = time_pack({"train_resnet50": (scene, covered)},
+                                 tag="phase 8d")["train_resnet50"]
     del kwargs
     lap("phase 8d")
     return readings
@@ -2989,7 +3077,7 @@ def phase_native(workdir, device):
     if texels != (experiment_cfg(exp).TRAIN.BATCH_SIZE, 7829, 3):
         raise AssertionError("[phase 9b] the render did not take the store's texels")
     scene = recorder.scene()
-    covered, readings["attr_err"], readings["box_err"], _ = hold_to_plain(
+    covered, readings["attr_err"], readings["table_err"], _ = hold_to_plain(
         "phase 9b", "train_native", scene)
     lap("phase 9b")
 
@@ -3031,6 +3119,8 @@ def phase_native(workdir, device):
     log(f"[phase 9f] on {card_line()}")
     native_timings("phase 9f", device, os.path.join(stores, "train"), readings)
     readings["kernel"] = time_rasterizer("phase 9f", "train_native", scene, covered)
+    readings["pack"] = time_pack({"train_native": (scene, covered)},
+                                 tag="phase 9f")["train_native"]
     lap("phase 9f")
     return readings
 
@@ -3077,16 +3167,17 @@ def rel_diff(a, b):
 
 def check_rank_kernels(name, scene):
     """On rank 0 of a 10b group: both kernels against their plain versions
-    on a path's tables, and K1's time there beside its bound.
+    on a path's tables, and their times there beside their bounds.
 
-    :return: dict attr_err, box_err, meshes, hw, kernel_ms, bound_ms,
-        bound_by
+    :return: dict attr_err, table_err, meshes, hw, kernel_ms, bound_ms,
+        bound_by (K1's), pack (time_pack's)
     """
-    covered, attr_err, box_err, _ = hold_to_plain("phase 10b", name, scene)
-    return {"attr_err": attr_err, "box_err": box_err,
+    covered, attr_err, table_err, _ = hold_to_plain("phase 10b", name, scene)
+    return {"attr_err": attr_err, "table_err": table_err,
             "meshes": int(scene.screen.shape[0]),
             "hw": list(scene.tables.image_hw),
-            **time_rasterizer("phase 10b", name, scene, covered)}
+            **time_rasterizer("phase 10b", name, scene, covered),
+            "pack": time_pack({name: (scene, covered)}, tag="phase 10b")[name]}
 
 
 def counted(fn):
@@ -3096,14 +3187,14 @@ def counted(fn):
     :return: fn's result, the counts
     """
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        face_boxes_cuda, rasterize_packed_cuda)
-    rasterize_packed_cuda.launches = face_boxes_cuda.launches = 0
+        pack_face_tables_cuda, rasterize_packed_cuda)
+    rasterize_packed_cuda.launches = pack_face_tables_cuda.launches = 0
     result = fn()
     if not torch.cuda.is_available():
         return result, None
     torch.cuda.synchronize()
     return result, {"rasterize": rasterize_packed_cuda.launches,
-                    "face_boxes": face_boxes_cuda.launches}
+                    "pack_face_tables": pack_face_tables_cuda.launches}
 
 
 class Float64Predictor(torch.nn.Module):
@@ -3772,12 +3863,12 @@ def phase_parallel(workdir, device):
     readings["kernels"].update(outs[0][0]["kernels"])
     for name, k in readings["kernels"].items():
         log(f"[phase 10b] rank 0's {name} tables ({k['meshes']} x {k['hw']}): "
-            f"K1 attrs {k['attr_err']:.1e} from its plain version, boxes "
-            f"{k['box_err']}; K1 {k['kernel_ms']:.4f} ms, bound "
+            f"K1 attrs {k['attr_err']:.1e} from its plain version, tables "
+            f"{k['table_err']}; K1 {k['kernel_ms']:.4f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
     readings["attr_err"] = max((k["attr_err"] for k in readings["kernels"].values()),
                                default=0.0)
-    readings["box_err"] = max((k["box_err"] for k in readings["kernels"].values()),
+    readings["table_err"] = max((k["table_err"] for k in readings["kernels"].values()),
                               default=0)
     readings["worst_of_tolerance"] = worst
     log(f"[phase 10b] each path's largest difference over its tolerance: {worst}")
@@ -3808,14 +3899,6 @@ def phase_parallel(workdir, device):
     return readings
 
 
-def time_face_boxes_plain(scene):
-    """face_boxes' plain version on a scene's faces, median of 5 x 20."""
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        face_boxes_plain, face_vertices)
-    fv, _ = face_vertices(scene.screen, scene.faces)
-    return median_ms(lambda: face_boxes_plain(fv, scene.tables.image_hw), inner=20)
-
-
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3836,7 +3919,7 @@ def main():
     card = card_line()
     log(card)
 
-    scenes, attr_err, box_err = timed_phase("phase 2", phase_kernel_vs_plain,
+    scenes, attr_err, table_err = timed_phase("phase 2", phase_kernel_vs_plain,
                                             device)
     with tempfile.TemporaryDirectory() as workdir:
         argv, launches = timed_phase("phase 3", phase_main_path, workdir)
@@ -3850,7 +3933,10 @@ def main():
         native = timed_phase("phase 9", phase_native, workdir, device)
         parallel = timed_phase("phase 10", phase_parallel, workdir, device)
 
-    boxes = timing["face_boxes"]
+    pack = timing["pack"]
+    pack_by_path = {**pack, **batched["pack"], **evaluation["pack"],
+                    "train": training["pack"], "train_resnet50": resnet50["pack"],
+                    "train_native": native["pack"]}
     path_launches = {"per_image_3_photos": launches,
                      **{f"{path}_{'1_photo' if path == 'samples' else '12_photos'}":
                         counts for path, counts in batched["launches"].items()},
@@ -3904,33 +3990,32 @@ def main():
         "device_launches_per_call": timing["device_launches_per_call"],
         "launches_by_path": {k: v["rasterize"] for k, v in path_launches.items()},
     }, {
-        "name": "face_boxes",
+        "name": "pack_face_tables",
+        "kernel": "pack_faces",
         "route": "cuda",
         "source": "hierarchicalprobabilistic3dhuman_torch/csrc/rasterize.cu",
         "replaces": "hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:97",
-        "launches": launches["face_boxes"],
-        "max_abs_err": max(box_err, batched["box_err"], evaluation["box_err"],
-                           training["box_err"], resnet50["box_err"],
-                           native["box_err"], parallel["box_err"]),
-        "ms": boxes["predict"]["kernel_ms"],
-        "plain_ms": boxes["plain_ms"],
-        "bound_ms": boxes["predict"]["bound_ms"],
-        "bound_by": boxes["predict"]["bound_by"],
+        "launches": launches["pack_face_tables"],
+        "max_abs_err": max(table_err, batched["table_err"], evaluation["table_err"],
+                           training["table_err"], resnet50["table_err"],
+                           native["table_err"], parallel["table_err"]),
+        "ms": pack["predict"]["kernel_ms"],
+        "device_ms": pack["predict"]["device_ms"],
+        "plain_ms": pack["predict"]["plain_ms"],
+        "bound_ms": pack["predict"]["bound_ms"],
+        "bound_by": pack["predict"]["bound_by"],
         "library_ms": None,
-        "ms_eval": boxes["eval"]["kernel_ms"],
-        "bound_ms_eval": boxes["eval"]["bound_ms"],
-        "ms_train": training["face_boxes"]["kernel_ms"],
-        "bound_ms_train": training["face_boxes"]["bound_ms"],
-        "plain_ms_train": training["face_boxes_plain_ms"],
-        "ms_batched": batched["face_boxes"]["batched"]["kernel_ms"],
-        "bound_ms_batched": batched["face_boxes"]["batched"]["bound_ms"],
-        "ms_samples": batched["face_boxes"]["samples"]["kernel_ms"],
-        "bound_ms_samples": batched["face_boxes"]["samples"]["bound_ms"],
-        **{f"{key}_{name}": evaluation["face_boxes"][name][field]
-           for name in ("eval_mode", "eval_samples")
-           for key, field in (("ms", "kernel_ms"), ("bound_ms", "bound_ms"),
+        **{f"{key}_{path}": v[field]
+           for path, v in pack_by_path.items() if path != "predict"
+           for key, field in (("ms", "kernel_ms"), ("device_ms", "device_ms"),
+                              ("bound_ms", "bound_ms"), ("bound_by", "bound_by"),
                               ("plain_ms", "plain_ms"))},
-        "launches_by_path": {k: v["face_boxes"] for k, v in path_launches.items()},
+        "sharded_paths": {name: v["pack"] for name, v in parallel["kernels"].items()},
+        "rasterize_step": {"predict": timing["raster_step"],
+                           "train": training["raster_step"],
+                           **evaluation["raster_step"]},
+        "launches_by_path": {k: v["pack_face_tables"]
+                             for k, v in path_launches.items()},
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
     for tag, readings in (("phase 5", batched), ("phase 6", evaluation),
@@ -3938,7 +4023,8 @@ def main():
                           ("phase 9", native), ("phase 10", parallel)):
         log(f"[{tag}] readings " + json.dumps(
             {k: v for k, v in readings.items()
-             if k not in ("kernels", "face_boxes", "launches", "kernel")}))
+             if k not in ("kernels", "pack", "raster_step", "launches",
+                          "kernel")}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 // algorithm: not the TPU's loop over (pixel tile, face chunk) pairs, but a
 // scatter over faces into a 64-bit key buffer and a resolve pass over pixels.
 //
-// Tables read (ops/rasterizer_cuda.py::pack_face_tables):
+// Tables read (pack_faces below, or ops/rasterizer_cuda.py::
+// pack_face_tables_plain):
 //   geom  (B, 16, Fp) f32  rows [wa0 wb0 wc0 wa1 wb1 wc1 za zb zc 0...]
 //   fattr (B, Fp, 3A) f32  [attr_v0 | attr_v1 | attr_v2]
 //   boxes (B, Fp, 4) i32   per face [rmin rmax cmin cmax] of pixel indices,
@@ -19,9 +20,9 @@
 // the plain version's "empty" depth); the nearest covering face wins, ties
 // to the lowest face index.
 //
-// The design. When the tables are packed, one launch of face_boxes (at the
-// end of this file) computes each face's box. A rasterizer call is then
-// three launches on one stream:
+// The design. One launch of pack_faces (at the end of this file) packs the
+// tables, each face's box among them. A rasterizer call is then three
+// launches on one stream:
 //   1. cudaMemsetAsync sets every key to all ones ("empty").
 //   2. raster_faces. A covered (pixel, face) pair makes the key
 //      (bits of z) << 32 | face and takes atomicMin on the pixel's key. z is
@@ -81,6 +82,7 @@ constexpr int kSmallBox = 128;      // pixels of a box that counts as small
 constexpr int kStripPixels = 512;   // pixels of a row strip, one warp's item
 constexpr int kMaxStrips = 16;      // strips per face and band
 constexpr int kBandPixels = 65536;  // pixels of a band of image rows
+constexpr int kChunk = 128;         // faces of a chunk (FACE_CHUNK)
 
 struct Planes {
   float a0, b0, c0, a1, b1, c1, za, zb, zc;
@@ -264,13 +266,48 @@ resolve(const u64* __restrict__ zkey, const float* __restrict__ geom,
 }
 
 // ---------------------------------------------------------------------------
-// face_boxes: the per-face boxes that raster_faces reads, one thread a face.
-// It computes what ops/rasterizer_cuda.py::face_boxes_plain computes (whose
-// docstring derives the rule: the vertices' bounding box grown by a bound on
-// the rounding error of the face's planes) with every operation rounded as
-// eager torch rounds it and in the same order, so the boxes are equal to the
-// plain version's. torch.amin, amax and maximum hand a NaN on; fminf and
-// fmaxf would drop it.
+// pack_faces: the four face tables of ops/rasterizer_cuda.py::
+// pack_face_tables in one launch. It stands for the JAX package's
+// hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py::
+// pack_face_tables (:97, jnp ops that XLA fuses; the TPU has no Pallas kernel
+// for it), and adds the per-face boxes that raster_faces reads.
+//
+// Read: verts (B, V, 3) f32 [x_pix y_pix z], faces (F, 3) i64 (indices in
+// [0, V); the kernel traps on any other, as torch's gather asserts), vattr
+// (B, V, A) f32. Written, as pack_face_tables_plain lays them out:
+//   geom   (B, 16, Fp) f32  rows [wa0 wb0 wc0 wa1 wb1 wc1 za zb zc 0 x 7]
+//   fattr  (B, Fp, 3A) f32  [attr_v0 | attr_v1 | attr_v2]
+//   ranges (B, Fp/128, 4) i32  per chunk of 128 faces [rmin rmax cmin cmax]
+//   boxes  (B, Fp, 4) i32   per face, as above, of pixel indices
+// Faces F..Fp-1 (the padding to a multiple of 128) are read as [0, 0, 0].
+//
+// The design. Grid (Fp / 128, B); a block of 128 threads is one chunk.
+//   1. Geometry: one thread a face gathers its three vertices (they stay in
+//      L2: a mesh's 94 KB of vertices is read by its 108 chunks), computes
+//      the planes, the depth plane and the box, and writes its 16 geom rows
+//      (row r of a warp's 32 faces is one 128 B store) and its box as one
+//      int4. Its indices go to shared memory for step 3.
+//   2. Chunk ranges: the block's min / max of the faces' extents, by warp
+//      shuffles and then the 4 warps' partials through shared memory; one
+//      thread rounds, clamps and stores them.
+//   3. Attributes: the chunk's 128 x 3A output floats are one contiguous
+//      span; consecutive threads write consecutive floats (float4s where A
+//      % 4 == 0 and the attributes are 16-byte aligned), each gathering its
+//      value from vattr. One thread a face would write at a 12A-byte stride.
+//
+// What bounds it on an H100: bytes. At the predict shape (6 meshes, Fp =
+// 13,824, A = 12) it writes 18.6 MB of tables (64 B of geometry, 144 B of
+// attributes and 16 B of box a face) and reads 0.9 MB, 0.006 ms at 3.35 TB/s;
+// its ~160 float32 operations a face take 0.0002 ms at 67 TFLOP/s.
+//
+// The rounding rule. The tables must equal, bit for bit, those of the torch
+// ops of pack_face_tables_plain on the card, on which K1's outputs and every
+// check of the port were measured. Each torch op rounds on its own: every
+// product, sum and difference here is __fmul_rn / __fadd_rn / __fsub_rn in
+// the plain version's order, and 1.0 / t (torch: reciprocal(t) * 1.0) is
+// __frcp_rn. Degenerate faces are not cut short: torch computes za and zb
+// from their zeroed rows too, and 0 * inf there is NaN as it is in torch.
+// torch.amin, amax and maximum hand a NaN on; fminf and fmaxf would drop it.
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   return a != a ? a : (b != b ? b : fminf(a, b));
@@ -280,6 +317,8 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return a != a ? a : (b != b ? b : fmaxf(a, b));
 }
 
+// The box rule is face_boxes_plain's (its docstring derives it: the vertices'
+// bounding box grown by a bound on the rounding error of the face's planes).
 // 6 (|a| W + |b| H) + 1.5 (|q| + |r|) + 5 |q - r| for the edge from vertex
 // i to vertex j: a = y_i - y_j, b = x_j - x_i, q = x_i y_j, r = y_i x_j.
 __device__ __forceinline__ float plane_error(float xi, float yi, float xj,
@@ -292,13 +331,12 @@ __device__ __forceinline__ float plane_error(float xi, float yi, float xj,
                    __fmul_rn(5.0f, fabsf(__fsub_rn(q, r))));
 }
 
-// First and last pixel index along one axis of n pixels.
-__device__ __forceinline__ void axis_box(float v0, float v1, float v2, float E,
+// First and last pixel index along one axis of n pixels, from the axis's
+// lowest and highest vertex coordinate.
+__device__ __forceinline__ void axis_box(float lo, float hi, float E,
                                          bool degenerate, int n, int& first,
                                          int& last) {
   const float u8 = 4.76837158203125e-07f;              // 8 x 2^-24
-  const float lo = nan_min(nan_min(v0, v1), v2);
-  const float hi = nan_max(nan_max(v0, v1), v2);
   const float margin = __fadd_rn(
       __fmul_rn(__fmul_rn(2.0f, E), __fsub_rn(hi, lo)),
       __fmul_rn(u8, nan_max(fabsf(lo), fabsf(hi))));
@@ -310,45 +348,161 @@ __device__ __forceinline__ void axis_box(float v0, float v1, float v2, float E,
   last = degenerate ? -1 : (int)fminf(fmaxf(l, -1.0f), (float)(n - 1));
 }
 
-__global__ void __launch_bounds__(kThreads)
-face_boxes(const float* __restrict__ face_verts, int4* __restrict__ boxes,
-           int n_faces, int H, int W) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_faces) return;
-  const float* v = face_verts + (size_t)i * 9;         // [vertex][x y z]
-  const float x0 = __ldg(v), y0 = __ldg(v + 1), x1 = __ldg(v + 3),
-              y1 = __ldg(v + 4), x2 = __ldg(v + 6), y2 = __ldg(v + 7);
-  const float u = 5.9604644775390625e-08f;             // 2^-24
-  const float p1 = __fmul_rn(__fsub_rn(x1, x0), __fsub_rn(y2, y0));
-  const float p2 = __fmul_rn(__fsub_rn(y1, y0), __fsub_rn(x2, x0));
+// A chunk range's end: torch.clamp(v, -1e9, 1e9) keeps a NaN, and the cast
+// to int32 is cvt.rzi.s32.f32 (a NaN gives 0).
+__device__ __forceinline__ int range_end(float v) {
+  return __float2int_rz(v != v ? v : fminf(fmaxf(v, -1e9f), 1e9f));
+}
+
+__device__ __forceinline__ int vertex_index(const long long* __restrict__ faces,
+                                            int f, int k, int F, int V) {
+  if (f >= F) return 0;
+  const long long i = __ldg(faces + (size_t)f * 3 + k);
+  if ((unsigned long long)i >= (unsigned long long)V) __trap();
+  return (int)i;
+}
+
+// Grid (Fp / kChunk, B), kChunk threads; VEC floats a store in step 3.
+template <int VEC>
+__global__ void __launch_bounds__(kChunk)
+pack_faces(const float* __restrict__ verts, const long long* __restrict__ faces,
+           const float* __restrict__ vattr, float* __restrict__ geom,
+           float* __restrict__ fattr, int4* __restrict__ ranges,
+           int4* __restrict__ boxes, int V, int F, int Fp, int A, int H, int W) {
+  __shared__ int s_idx[3 * kChunk];
+  __shared__ float s_part[4][kChunk / 32];
+  const int t = threadIdx.x, b = blockIdx.y;
+  const int f = blockIdx.x * kChunk + t;
+
+  // 1. Geometry, one thread a face.
+  const float* vb = verts + (size_t)b * V * 3;
+  float x[3], y[3], z[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int i = vertex_index(faces, f, k, F, V);
+    s_idx[3 * t + k] = i;
+    x[k] = __ldg(vb + (size_t)i * 3);
+    y[k] = __ldg(vb + (size_t)i * 3 + 1);
+    z[k] = __ldg(vb + (size_t)i * 3 + 2);
+  }
+  const float a0 = __fsub_rn(y[1], y[2]), b0 = __fsub_rn(x[2], x[1]);
+  const float c0 = __fsub_rn(__fmul_rn(x[1], y[2]), __fmul_rn(y[1], x[2]));
+  const float a1 = __fsub_rn(y[2], y[0]), b1 = __fsub_rn(x[0], x[2]);
+  const float c1 = __fsub_rn(__fmul_rn(x[2], y[0]), __fmul_rn(y[2], x[0]));
+  const float p1 = __fmul_rn(__fsub_rn(x[1], x[0]), __fsub_rn(y[2], y[0]));
+  const float p2 = __fmul_rn(__fsub_rn(y[1], y[0]), __fsub_rn(x[2], x[0]));
   const float denom = __fsub_rn(p1, p2);
   const bool degenerate = fabsf(denom) <= 1e-9f;
-  // torch evaluates u / |denom| as reciprocal(|denom|) * u.
+  const float inv = __frcp_rn(degenerate ? 1.0f : denom);
+  const float wa0 = degenerate ? 0.0f : __fmul_rn(a0, inv);
+  const float wb0 = degenerate ? 0.0f : __fmul_rn(b0, inv);
+  const float wc0 = degenerate ? -1.0f : __fmul_rn(c0, inv);
+  const float wa1 = degenerate ? 0.0f : __fmul_rn(a1, inv);
+  const float wb1 = degenerate ? 0.0f : __fmul_rn(b1, inv);
+  const float wc1 = degenerate ? 0.0f : __fmul_rn(c1, inv);
+  const float dz0 = __fsub_rn(z[0], z[2]), dz1 = __fsub_rn(z[1], z[2]);
+  const float rows[9] = {
+      wa0, wb0, wc0, wa1, wb1, wc1,
+      __fadd_rn(__fmul_rn(wa0, dz0), __fmul_rn(wa1, dz1)),
+      __fadd_rn(__fmul_rn(wb0, dz0), __fmul_rn(wb1, dz1)),
+      degenerate ? 0.0f
+                 : __fadd_rn(__fadd_rn(z[2], __fmul_rn(wc0, dz0)),
+                             __fmul_rn(wc1, dz1))};
+  float* g = geom + (size_t)b * kGeomRows * Fp + f;
+#pragma unroll
+  for (int r = 0; r < kGeomRows; ++r) g[(size_t)r * Fp] = r < 9 ? rows[r] : 0.0f;
+
+  // The box (face_boxes_plain). torch evaluates u / |denom| as
+  // reciprocal(|denom|) * u.
+  const float u = 5.9604644775390625e-08f;             // 2^-24
   const float scale = __fmul_rn(__frcp_rn(fabsf(denom)), u);
   const float rho = __fmul_rn(__fmul_rn(8.0f, scale),
                               __fadd_rn(fabsf(p1), fabsf(p2)));
-  const float planes = __fadd_rn(plane_error(x1, y1, x2, y2, (float)W, (float)H),
-                                 plane_error(x2, y2, x0, y0, (float)W, (float)H));
+  const float planes = __fadd_rn(
+      plane_error(x[1], y[1], x[2], y[2], (float)W, (float)H),
+      plane_error(x[2], y[2], x[0], y[0], (float)W, (float)H));
   float E = __fdiv_rn(
       __fmul_rn(2.0f, __fadd_rn(__fadd_rn(rho, __fmul_rn(scale, planes)),
                                 __fmul_rn(4.0f, u))),
       __fsub_rn(1.0f, rho));
   if (!(isfinite(E) && rho < 0.5f)) E = INFINITY;
+  const float ylo = nan_min(nan_min(y[0], y[1]), y[2]);
+  const float yhi = nan_max(nan_max(y[0], y[1]), y[2]);
+  const float xlo = nan_min(nan_min(x[0], x[1]), x[2]);
+  const float xhi = nan_max(nan_max(x[0], x[1]), x[2]);
   int4 box;
-  axis_box(y0, y1, y2, E, degenerate, H, box.x, box.y);
-  axis_box(x0, x1, x2, E, degenerate, W, box.z, box.w);
-  boxes[i] = box;
+  axis_box(ylo, yhi, E, degenerate, H, box.x, box.y);
+  axis_box(xlo, xhi, E, degenerate, W, box.z, box.w);
+  boxes[(size_t)b * Fp + f] = box;
+
+  // 2. The chunk's range: degenerate faces (padding among them) take no
+  // part, as +1e9 minima and -1e9 maxima.
+  float ext[4] = {degenerate ? 1e9f : ylo, degenerate ? -1e9f : yhi,
+                  degenerate ? 1e9f : xlo, degenerate ? -1e9f : xhi};
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float o = __shfl_xor_sync(0xffffffffu, ext[e], d);
+      ext[e] = (e % 2 == 0) ? nan_min(ext[e], o) : nan_max(ext[e], o);
+    }
+  }
+  if ((t & 31) == 0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_part[e][t >> 5] = ext[e];
+  }
+  __syncthreads();                       // s_part and s_idx are complete
+  if (t == 0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      for (int w = 1; w < kChunk / 32; ++w) {
+        ext[e] = (e % 2 == 0) ? nan_min(ext[e], s_part[e][w])
+                              : nan_max(ext[e], s_part[e][w]);
+      }
+    }
+    ranges[(size_t)b * gridDim.x + blockIdx.x] = make_int4(
+        range_end(floorf(ext[0])), range_end(ceilf(ext[1])),
+        range_end(floorf(ext[2])), range_end(ceilf(ext[3])));
+  }
+
+  // 3. Attributes: the chunk's span of 128 x 3A floats, VEC at a time.
+  const int row = 3 * A;
+  const float* ab = vattr + (size_t)b * V * A;
+  float* out = fattr + ((size_t)b * Fp + (size_t)blockIdx.x * kChunk) * row;
+  for (int q = t; q < kChunk * row / VEC; q += kChunk) {
+    const int o = q * VEC;
+    const int fl = o / row, k = (o - fl * row) / A;
+    const float* src = ab + (size_t)s_idx[3 * fl + k] * A + (o - fl * row - k * A);
+    if (VEC == 4) {
+      reinterpret_cast<float4*>(out)[q] = __ldg(reinterpret_cast<const float4*>(src));
+    } else {
+      out[q] = __ldg(src);
+    }
+  }
 }
 
 }  // namespace
 
-// One launch on `stream`: the boxes of n_faces faces. Returns the CUDA error,
-// 0 if none.
-extern "C" int hp3d_face_boxes(const void* face_verts, void* boxes, int n_faces,
-                               int H, int W, void* stream) {
-  face_boxes<<<(n_faces + kThreads - 1) / kThreads, kThreads, 0,
-               (cudaStream_t)stream>>>((const float*)face_verts, (int4*)boxes,
-                                       n_faces, H, W);
+// One launch on `stream` (PyTorch's current stream): the four face tables of
+// B meshes of V vertices, F faces and A attributes, padded to Fp faces.
+// Returns the CUDA error, 0 if none.
+extern "C" int hp3d_pack_faces(const void* verts, const void* faces,
+                               const void* vattr, void* geom, void* fattr,
+                               void* ranges, void* boxes, int B, int V, int F,
+                               int Fp, int A, int H, int W, void* stream) {
+  const dim3 grid(Fp / kChunk, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (A % 4 == 0 && (size_t)vattr % 16 == 0) {
+    pack_faces<4><<<grid, kChunk, 0, st>>>(
+        (const float*)verts, (const long long*)faces, (const float*)vattr,
+        (float*)geom, (float*)fattr, (int4*)ranges, (int4*)boxes, V, F, Fp, A,
+        H, W);
+  } else {
+    pack_faces<1><<<grid, kChunk, 0, st>>>(
+        (const float*)verts, (const long long*)faces, (const float*)vattr,
+        (float*)geom, (float*)fattr, (int4*)ranges, (int4*)boxes, V, F, Fp, A,
+        H, W);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,18 +1,17 @@
-"""Packed face tables and the hand-written CUDA rasterizer's wrappers.
+"""Packed face tables and the hand-written CUDA kernels' wrappers.
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/ops/rasterizer_pallas.py:
-`pack_face_tables` (:97) as torch ops, with a fourth table of per-face
-screen boxes for the CUDA design, and `rasterize_packed`, which takes the
-place of `rasterize_batched_pallas` (:428). The kernels are in
-csrc/rasterize.cu: the rasterizer (it replaces `_raster_kernel`, :240-345),
-a per-face scatter into a 64-bit z-key buffer and a resolve pass, and
-`face_boxes`, which builds the fourth table in one launch. The file is
-compiled with nvcc at first use into build/hp3d_torch_kernels/ and loaded
-with ctypes.
+`pack_face_tables` (:97), with a fourth table of per-face screen boxes for
+the CUDA design, and `rasterize_packed`, which takes the place of
+`rasterize_batched_pallas` (:428). The kernels are in csrc/rasterize.cu:
+`pack_faces`, which builds all four tables in one launch, and the
+rasterizer (it replaces `_raster_kernel`, :240-345), a per-face scatter into
+a 64-bit z-key buffer and a resolve pass. The file is compiled with nvcc at
+first use into build/hp3d_torch_kernels/ and loaded with ctypes.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernels (or
-raise), CPU tensors go to the plain torch versions (ops/rasterizer.py and
-`face_boxes_plain`). There is no fall-back from one to the other.
+raise), CPU tensors go to the plain torch versions (`pack_face_tables_plain`
+and ops/rasterizer.py). There is no fall-back from one to the other.
 """
 
 import ctypes
@@ -61,14 +60,17 @@ def face_vertices(verts_screen, faces):
     return verts_screen[:, faces], faces
 
 
-def pack_face_tables(verts_screen, faces, vert_attrs, image_hw):
-    """Per-face geometry + attribute tables, per-chunk and per-face screen boxes.
+def pack_face_tables_plain(verts_screen, faces, vert_attrs, image_hw):
+    """Per-face geometry + attribute tables, per-chunk and per-face screen
+    boxes, as torch ops: the plain version of the `pack_faces` kernel, which
+    rounds every operation as this does, in this order, so the two give the
+    same bits.
 
     Faces keep their natural (part-contiguous) order, padded with [0, 0, 0]
     faces to a FACE_CHUNK multiple; each chunk gets a screen bounding box
-    (the JAX package's table, which the CUDA kernel does not read) and each
-    face a box of the pixels it can cover (see face_boxes), which is all the
-    kernel tests.
+    (the JAX package's table, which the CUDA rasterizer does not read) and
+    each face a box of the pixels it can cover (see face_boxes_plain), which
+    is all the rasterizer tests.
 
     :param verts_screen: (B, V, 3) [x_pix, y_pix, z]
     :param faces: (F, 3) int64
@@ -134,13 +136,13 @@ def pack_face_tables(verts_screen, faces, vert_attrs, image_hw):
     chunk_ranges = torch.stack([rmin, rmax, cmin, cmax], dim=-1).to(torch.int32)
     H, W = image_hw
     return FaceTables(geom_t, face_attrs, chunk_ranges,
-                      face_boxes(fv, (H, W)), (H, W))
+                      face_boxes_plain(fv, (H, W)), (H, W))
 
 
 def face_boxes_plain(face_verts, image_hw):
-    """Per-face boxes of the pixels a face can cover, as torch ops: the plain
-    version of the `face_boxes` kernel, which rounds every operation as this
-    does, in this order, so the two are equal.
+    """Per-face boxes of the pixels a face can cover, as torch ops: the fourth
+    table of pack_face_tables_plain, which the `pack_faces` kernel computes
+    with every operation rounded as here, in this order.
 
     The rule. Coverage is decided from the *rounded* float32 planes of
     pack_face_tables, not from the exact triangle, so a face can cover a
@@ -244,9 +246,9 @@ def _library():
     lib.hp3d_rasterize.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                                    + [ctypes.c_float, ctypes.c_void_p])
     lib.hp3d_rasterize.restype = ctypes.c_int
-    lib.hp3d_face_boxes.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    lib.hp3d_pack_faces.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                                     + [ctypes.c_void_p])
-    lib.hp3d_face_boxes.restype = ctypes.c_int
+    lib.hp3d_pack_faces.restype = ctypes.c_int
     return lib
 
 
@@ -257,49 +259,79 @@ def _check_znear(znear):
         raise ValueError(f"znear must be > 0, got {znear}")
 
 
-def _check(t, name, dtype, shape):
+def _check(t, name, dtype, shape, align=16):
     if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous CUDA {dtype} tensor, got "
                          f"{t.dtype} on {t.device} (contiguous="
                          f"{t.is_contiguous()})")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned (read as 4-vectors)")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def face_boxes_cuda(face_verts, image_hw):
-    """Launch the `face_boxes` kernel: one thread a face computes what
-    face_boxes_plain computes in some 90 torch launches.
+def pack_face_tables_cuda(verts_screen, faces, vert_attrs, image_hw):
+    """Launch the `pack_faces` kernel: the four tables of
+    pack_face_tables_plain (see its docstring) in one launch on the current
+    stream, bit for bit as its torch ops give them on the card. It has no
+    backward: an input that requires grad under grad mode raises.
 
-    :param face_verts: (B, Fp, 3, 3) float32 on the card
-    :return: (B, Fp, 4) int32
+    :param verts_screen: (B, V, 3) float32 on the card
+    :param faces: (F, 3) int64 on the card, indices in [0, V)
+    :param vert_attrs: (B, V, A) float32 on the card
+    :return: FaceTables
     """
-    B, Fp = face_verts.shape[:2]
+    if torch.is_grad_enabled() and (verts_screen.requires_grad
+                                    or vert_attrs.requires_grad):
+        raise RuntimeError("pack_face_tables_cuda has no backward: call it "
+                           "under torch.no_grad()")
+    B, V = verts_screen.shape[:2]
+    F, A = faces.shape[0], vert_attrs.shape[-1]
+    _check(verts_screen, "verts_screen", torch.float32, (B, V, 3), align=4)
+    _check(faces, "faces", torch.int64, (F, 3), align=8)
+    _check(vert_attrs, "vert_attrs", torch.float32, (B, V, A), align=4)
+    device = verts_screen.device
+    if faces.device != device or vert_attrs.device != device:
+        raise ValueError(f"pack_face_tables_cuda: inputs on {device}, "
+                         f"{faces.device} and {vert_attrs.device}")
     H, W = image_hw
-    _check(face_verts, "face_verts", torch.float32, (B, Fp, 3, 3))
-    boxes = torch.empty((B, Fp, 4), dtype=torch.int32, device=face_verts.device)
-    with torch.cuda.device(face_verts.device):
-        stream = torch.cuda.current_stream(face_verts.device).cuda_stream
-        err = _library().hp3d_face_boxes(face_verts.data_ptr(), boxes.data_ptr(),
-                                         B * Fp, H, W, stream)
+    Fp = F + (-F) % FACE_CHUNK
+    geom_t = torch.empty((B, GEOM_ROWS, Fp), dtype=torch.float32, device=device)
+    face_attrs = torch.empty((B, Fp, 3 * A), dtype=torch.float32, device=device)
+    chunk_ranges = torch.empty((B, Fp // FACE_CHUNK, 4), dtype=torch.int32,
+                               device=device)
+    face_boxes = torch.empty((B, Fp, 4), dtype=torch.int32, device=device)
+    tables = FaceTables(geom_t, face_attrs, chunk_ranges, face_boxes, (H, W))
+    if B * Fp == 0:                      # nothing to pack (a launch of no blocks fails)
+        return tables
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().hp3d_pack_faces(
+            verts_screen.data_ptr(), faces.data_ptr(), vert_attrs.data_ptr(),
+            geom_t.data_ptr(), face_attrs.data_ptr(), chunk_ranges.data_ptr(),
+            face_boxes.data_ptr(), B, V, F, Fp, A, H, W, stream)
     if err != 0:
-        raise RuntimeError(f"face_boxes kernel launch failed: cudaError {err}")
-    face_boxes_cuda.launches += 1
-    return boxes
+        raise RuntimeError(f"pack_faces kernel launch failed: cudaError {err}")
+    pack_face_tables_cuda.launches += 1
+    return tables
 
 
-face_boxes_cuda.launches = 0
+pack_face_tables_cuda.launches = 0
 
 
-def face_boxes(face_verts, image_hw):
-    """Per-face boxes (the rule is in face_boxes_plain's docstring): the CUDA
-    kernel for CUDA tensors, the plain torch version for CPU tensors."""
-    if face_verts.is_cuda:
-        return face_boxes_cuda(face_verts, image_hw)
-    if face_verts.device.type != "cpu":
-        raise ValueError(f"no face_boxes for device {face_verts.device}")
-    return face_boxes_plain(face_verts, image_hw)
+def pack_face_tables(verts_screen, faces, vert_attrs, image_hw):
+    """The four face tables (pack_face_tables_plain's docstring): the
+    `pack_faces` kernel for CUDA tensors, the plain torch version for CPU
+    tensors.
+
+    :return: FaceTables
+    """
+    device = verts_screen.device
+    if device.type == "cuda":
+        return pack_face_tables_cuda(verts_screen, faces, vert_attrs, image_hw)
+    if device.type != "cpu":
+        raise ValueError(f"no pack_face_tables for device {device}")
+    return pack_face_tables_plain(verts_screen, faces, vert_attrs, image_hw)
 
 
 def rasterize_packed_cuda(tables, znear=1e-3):

@@ -178,7 +178,9 @@ class TexturedIUVRenderer:
         }
         self.background_color = const(background_color)
         dp = preprocess_densepose_UV(uv_path)
-        self.faces = torch.as_tensor(dp["faces"], dtype=torch.int64, device=device)
+        # Contiguous: the pack_faces kernel reads the rows as they lie.
+        self.faces = torch.as_tensor(dp["faces"], dtype=torch.int64,
+                                     device=device).contiguous()
         self.verts_map = torch.as_tensor(dp["verts_map"], dtype=torch.int64,
                                          device=device)
         self.verts_iuv = torch.as_tensor(dp["verts_iuv"], device=device)

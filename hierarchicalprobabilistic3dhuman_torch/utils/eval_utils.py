@@ -2,11 +2,13 @@
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/utils/eval_utils.py
 (compute_similarity_transform :14, procrustes_analysis_batch :48,
-scale_and_translation_transform_batch :82). The batched Procrustes solve
+scale_and_translation_transform_batch :82, shape_parameters_to_a_pose :100,
+make_xz_ground_plane :115). The batched Procrustes solve
 runs the port's Jacobi SVD (ops/svd3.py), as the JAX function runs its own:
 R = V Z U^T does not depend on the SVD's column signs.
 """
 
+import numpy as np
 import torch
 
 from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import det3x3, svd3x3
@@ -83,3 +85,34 @@ def scale_and_translation_transform_batch(P, T):
     T_scale = torch.sqrt(torch.sum((T - T_mean) ** 2, dim=(1, 2), keepdim=True)
                          / T.shape[1])
     return P_normalised * T_scale + T_mean
+
+
+def shape_parameters_to_a_pose(body_shape, smpl):
+    """Mesh of a person in A-pose given betas: body-pose entries 47 and 50
+    (the shoulders' z rotations) at -pi/3 and pi/3.
+
+    :param body_shape: (B, num_betas)
+    :param smpl: a models.smpl.SMPL instance
+    :return: (B, 6890, 3) vertices
+    """
+    a_pose = body_shape.new_zeros((body_shape.shape[0], 69))
+    a_pose[:, 47] = -np.pi / 3.0
+    a_pose[:, 50] = np.pi / 3.0
+    return smpl(betas=body_shape, body_pose=a_pose)["vertices"]
+
+
+def make_xz_ground_plane(vertices):
+    """Translate meshes so that their lowest y-coordinate sits on the x-z
+    plane. A numpy array is copied and a tensor returned new; the input is
+    not changed.
+
+    :param vertices: (B, 6890, 3) numpy array or tensor
+    :return: the same type and shape
+    """
+    if isinstance(vertices, np.ndarray):
+        vertices = vertices.copy()
+        vertices[:, :, 1] -= vertices[:, :, 1].min(axis=-1, keepdims=True)
+        return vertices
+    vertices = vertices.clone()
+    vertices[:, :, 1] -= vertices[:, :, 1].amin(dim=-1, keepdim=True)
+    return vertices

@@ -1,4 +1,4 @@
-"""The rasterizer kernel's wrapper, and the kernel against its plain version.
+"""The CUDA kernels' wrappers, and the kernels against their plain versions.
 
 This file imports nothing of JAX, so the card's machine can run it without
 the repo's conftest:
@@ -7,8 +7,9 @@ the repo's conftest:
 
 The `cuda` tests skip where torch finds no CUDA device: a CUDA kernel has
 no CPU mode. On the card the kernel must match the plain version bit for
-bit on mask and depth, and to 1e-5 on attrs; the face_boxes kernel's boxes
-must equal its plain version's.
+bit on mask and depth, and to 1e-5 on attrs; the pack_faces kernel's four
+tables must equal its plain version's (the torch ops on the card) bit for
+bit.
 """
 
 import numpy as np
@@ -62,23 +63,36 @@ def test_wrapper_dispatch_on_cpu():
 
 
 def test_face_boxes_dispatch_on_cpu():
-    """The same for the fourth table's kernel."""
+    """The same for the face tables, whose fourth is the boxes: CPU tensors
+    take pack_face_tables_plain and launch nothing; the pack_faces kernel's
+    entry refuses CPU tensors instead of falling back, and refuses inputs
+    that require grad under grad mode (it has no backward)."""
     scene = chip_smoke.triangle_scene("cpu")
+    hw = scene.tables.image_hw
+    inputs = (scene.screen, scene.faces, scene.vert_attrs, hw)
+    before = trc.pack_face_tables_cuda.launches
+    tables = trc.pack_face_tables(*inputs)
+    plain = trc.pack_face_tables_plain(*inputs)
+    assert tables.geom_t.shape == (1, 16, 128) and tables.image_hw == hw
+    for a, b in zip(tables[:4], plain[:4]):
+        assert torch.equal(a, b)
     fv, faces = trc.face_vertices(scene.screen, scene.faces)
     assert fv.shape == (1, 128, 3, 3) and faces.shape == (128, 3)
-    before = trc.face_boxes_cuda.launches
-    boxes = trc.face_boxes(fv, (64, 64))
-    assert torch.equal(boxes, trc.face_boxes_plain(fv, (64, 64)))
-    assert torch.equal(boxes, scene.tables.face_boxes)
-    assert trc.face_boxes_cuda.launches == before
+    assert torch.equal(tables.face_boxes, trc.face_boxes_plain(fv, hw))
+    assert trc.pack_face_tables_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        trc.face_boxes_cuda(fv, (64, 64))
+        trc.pack_face_tables_cuda(*inputs)
+    with pytest.raises(RuntimeError, match="no backward"):
+        trc.pack_face_tables_cuda(scene.screen.clone().requires_grad_(),
+                                  *inputs[1:])
+    assert trc.pack_face_tables_cuda.launches == before
 
 
 def test_kernel_source_names_what_it_replaces():
     src = open(trc.SRC_PATH).read()
     assert "rasterizer_pallas.py::" in src and "_raster_kernel" in src
-    assert "__fmul_rn" in src and "__fadd_rn" in src
+    assert "__fmul_rn" in src and "__fadd_rn" in src and "__frcp_rn" in src
+    assert "pack_faces" in src and "face_boxes(" not in src
     assert "compute_90a,code=sm_90a" in " ".join(trc.NVCC_FLAGS)
 
 
@@ -179,6 +193,24 @@ def test_kernel_is_deterministic_on_card(cuda_device, scene, hw):
         assert torch.equal(a, b)
 
 
+def _assert_tables_equal_plain(inputs):
+    """One call of pack_face_tables on CUDA inputs is one launch of the
+    pack_faces kernel, and its four tables hold the bits of the plain
+    version's, the torch ops on the card (a NaN equal to any NaN).
+
+    :return: the kernel's tables
+    """
+    before = trc.pack_face_tables_cuda.launches
+    tables = trc.pack_face_tables(*inputs)
+    assert trc.pack_face_tables_cuda.launches == before + 1
+    plain = trc.pack_face_tables_plain(*inputs)
+    torch.cuda.synchronize()
+    for name, k, p in zip(trc.FaceTables._fields, tables[:4], plain[:4]):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        assert bool(chip_smoke.same_bits(k, p).all()), name
+    return tables
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene,hw", [("triangles", (64, 64)),
                                       ("smpl", (100, 90)),
@@ -187,10 +219,15 @@ def test_kernel_is_deterministic_on_card(cuda_device, scene, hw):
                                       ("batched4", (512, 512)),
                                       ("samples", (512, 512)),
                                       ("sil8", (256, 256)),
-                                      ("sil80", (256, 256))])
+                                      ("sil80", (256, 256)),
+                                      ("nan_inf", (100, 90))])
 def test_face_boxes_kernel_equals_plain_on_card(cuda_device, scene, hw):
-    """Tolerance 0: the kernel rounds as the torch ops do. The scenes'
-    tables were packed on the card, so their boxes are the kernel's."""
+    """All four tables of the pack_faces kernel, boxes among them, against
+    its plain version on the card: tolerance 0, bit for bit, one launch a
+    call. The scenes' tables were packed on the card, so they are the
+    kernel's. nan_inf is the smpl scene with a NaN at vertex 0 of the first
+    mesh (which the padding faces read too) and infinities in two others:
+    NaN and inf reach every table as the torch ops hand them on."""
     if scene == "sliver":
         built = chip_smoke.sliver_scene(cuda_device)
     elif scene == "batch8":
@@ -205,30 +242,39 @@ def test_face_boxes_kernel_equals_plain_on_card(cuda_device, scene, hw):
         built = chip_smoke.silhouette_scene(cuda_device, batch=int(scene[3:]))
     else:
         built = chip_smoke.predict_scene(cuda_device, img_wh=hw[1])
-    fv, _ = trc.face_vertices(built.screen, built.faces)
-    before = trc.face_boxes_cuda.launches
-    boxes = trc.face_boxes(fv, hw)
-    assert trc.face_boxes_cuda.launches == before + 1
-    assert torch.equal(boxes, trc.face_boxes_plain(fv, hw))
-    if hw == built.tables.image_hw:
-        assert torch.equal(boxes, built.tables.face_boxes)
+    screen = built.screen
+    if scene == "nan_inf":
+        screen = screen.clone()
+        screen[0, 0, 0] = float("nan")
+        screen[1, 500, 1] = float("inf")
+        screen[2, 900, 2] = -float("inf")
+    tables = _assert_tables_equal_plain((screen, built.faces, built.vert_attrs, hw))
+    if hw == built.tables.image_hw and scene != "nan_inf":
+        for k, own in zip(tables[:4], built.tables[:4]):
+            assert bool(chip_smoke.same_bits(k, own).all())
+    boxes = tables.face_boxes
     assert (boxes[..., 1] >= boxes[..., 0]).sum() > 4
 
 
 @pytest.mark.cuda
-def test_face_boxes_kernel_equals_plain_on_odd_vertices(cuda_device):
+@pytest.mark.parametrize("A", [5, 8])
+def test_face_boxes_kernel_equals_plain_on_odd_vertices(cuda_device, A):
     """NaN, infinite, huge and denormal coordinates, and exactly degenerate
-    faces, take the same branches in the kernel as in the torch ops."""
+    faces, take the same branches in the pack_faces kernel as in the torch
+    ops: all four tables bit for bit, with scalar (A = 5) and 4-vector
+    (A = 8) attribute stores."""
     rng = np.random.RandomState(5)
     fv = (rng.rand(2, 256, 3, 3) * 80 - 10).astype(np.float32)
     odd = [np.nan, np.inf, -np.inf, 3e38, -3e38, 1e-40, 0.0, 1e19, -1e19]
     for k in range(2 * 200):
         fv[k % 2, k // 2, rng.randint(3), rng.randint(2)] = odd[k % len(odd)]
     fv[:, 200:230, 2] = fv[:, 200:230, 1]            # two vertices coincide
-    fv = torch.as_tensor(fv, device=cuda_device)
+    verts = torch.as_tensor(fv.reshape(2, 768, 3), device=cuda_device)
+    faces = torch.arange(768, device=cuda_device).reshape(256, 3)[:250]
+    attrs = torch.as_tensor(rng.randn(2, 768, A).astype(np.float32),
+                            device=cuda_device)
     for hw in ((64, 64), (48, 100)):
-        assert torch.equal(trc.face_boxes_cuda(fv, hw),
-                           trc.face_boxes_plain(fv, hw))
+        _assert_tables_equal_plain((verts, faces, attrs, hw))
 
 
 def test_silhouette_tables_carry_the_iuv_alone():
