@@ -47,7 +47,8 @@ Phases (any failure exits non-zero before the final line):
      detectors (boxes on the card within 1 px of the CPU's, same weights),
      and through the batched --no_vis driver with the single-person one
      (box and outputs within 1e-4 of the per-image driver's); (f) the
-     kernels at the two new shapes beside their bounds, --no_vis img/s at
+     kernels at the two new shapes beside their bounds and K1's plain
+     version (one call), --no_vis img/s at
      batch 1, 4 and 8 and with the bfloat16 HRNet, ms/image with figures at
      batch 4 on one chunk, a chunk's HRNet and core times and launches, and
      the bfloat16 HRNet against float32;
@@ -135,12 +136,28 @@ Phases (any failure exits non-zero before the final line):
      at sample 2 (B = 8, 10 samples; frame metrics 1e-5, IOU counts 2e-3),
      the predict core at sample 2 (N = 50, 25 / 25, 6 views at 512^2;
      1e-5); both kernels held to their plain versions on rank 0's tables of
-     each path, their launches counted per rank; (c) times on the host
+     each path, timed there beside their bounds and K1's plain version
+     (one call), their launches counted per rank; (c) times on the host
      clock (median of 5) beside the card's name and power limit: train
      img/s per stage of the world-1 DDP step and of the plain step, the
      gradient all-reduce at world 1 over NCCL at ResNet-18's and
      ResNet-50's parameter counts, and the gloo ranks' step and all-reduce
-     (a correctness run on one card, not a scaling number).
+     (a correctness run on one card, not a scaling number);
+ 11. the training trajectory, GOLDEN_STEPS stage-1 then GOLDEN_STEPS
+     stage-2 Adam steps with one Adam through both stages, as the loop
+     runs them: (a) tests/test_torch_golden_run.py's trajectory (ResNet-18
+     at B = 2, 48^2, EMBED_DIM 64, 2 samples) on the card under
+     deterministic algorithms, K1 and pack_faces in its render (a launch
+     of each a step), against the same trajectory on the CPU (their plain
+     versions) from the same weights, batches and draws, by golden_ratios'
+     rule, the floor being the card's trajectory with the predictor and
+     Adam in float64; (b) phase 7's full width (B = 72, 256^2, EMBED_DIM
+     256, 8 samples) from one seed twice under deterministic algorithms
+     (bit-equal every step and at the end, every loss finite), and with
+     the bfloat16 encoder (held to the float32 run by the JAX package's
+     test_bf16_encoder_training_tracks_f32 criteria); both kernels held to
+     their plain versions on the last step's tables of each size; the
+     median ms a step of each stage beside the card's name and power limit.
      Each phase logs its wall time.
 
 `python3 chip_smoke.py --rank SPEC RANK` is one rank of a group that
@@ -434,14 +451,20 @@ def train_parts(device, cfg, seed=0):
     of the training configuration `cfg`, on `device`."""
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
         build_pose_shape_model)
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
+    model = build_pose_shape_model(cfg, "jacobi")
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return (model.to(device), *train_tools(device, cfg))
+
+
+def train_tools(device, cfg):
+    """Synthetic SMPL, the perspective renderer and Canny of the training
+    configuration `cfg`, on `device`."""
     from hierarchicalprobabilistic3dhuman_torch.models.canny_edge_detector import (
         CannyEdgeDetector)
     from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
-    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
     from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
         TexturedIUVRenderer)
-    model = build_pose_shape_model(cfg, "jacobi")
-    init_weights(model, torch.Generator().manual_seed(seed))
     renderer = TexturedIUVRenderer(
         device, img_wh=cfg.DATA.PROXY_REP_SIZE, projection_type="perspective",
         perspective_focal_length=cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH,
@@ -450,7 +473,7 @@ def train_parts(device, cfg, seed=0):
                              gaussian_filter_std=cfg.DATA.EDGE_GAUSSIAN_STD,
                              gaussian_filter_size=cfg.DATA.EDGE_GAUSSIAN_SIZE,
                              threshold=cfg.DATA.EDGE_THRESHOLD)
-    return model.to(device), SMPL.synthetic(device), renderer, edge
+    return SMPL.synthetic(device), renderer, edge
 
 
 def train_batch(batch, img_wh, seed):
@@ -1051,6 +1074,17 @@ def once_ms(fn):
     return start.elapsed_time(end)
 
 
+def plain_raster_ms(tag, name, scene):
+    """K1's plain version (the torch ops on the card) on a scene's tables:
+    CUDA-event ms of one call, as it takes seconds at the paths' shapes (it
+    tests every pixel against every face)."""
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        rasterize_packed_plain)
+    ms = once_ms(lambda: rasterize_packed_plain(scene.tables))
+    log(f"[{tag}] rasterize {name}: plain version {ms:.2f} ms (one call)")
+    return ms
+
+
 def host_and_card_ms(fn, repeats=5, inner=20):
     """Per call of fn(), on the host's clock, medians over `repeats` of
     `inner` calls in a row from an idle card: the time the host takes to
@@ -1543,7 +1577,8 @@ def phase_batched(workdir):
 
     # (f) timings: the kernels at the new shapes, the folder runs, and a
     # chunk's stages.
-    readings["kernels"] = {name: time_rasterizer("phase 5f", name, scene, cov)
+    readings["kernels"] = {name: {**time_rasterizer("phase 5f", name, scene, cov),
+                                  "plain_ms": plain_raster_ms("phase 5f", name, scene)}
                            for name, (scene, cov) in new_scenes.items()}
     readings["pack"] = time_pack(new_scenes, tag="phase 5f")
     del new_scenes, scenes
@@ -1768,8 +1803,6 @@ def phase_eval(workdir, device):
     from hierarchicalprobabilistic3dhuman_torch.cli.evaluate import (
         build_evaluator, build_parser, main)
     from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import svd3x3_gesdd
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        rasterize_packed_plain)
 
     readings = {"launches": {}}
     lap_start = [time.perf_counter()]
@@ -1810,12 +1843,7 @@ def phase_eval(workdir, device):
         readings["attr_err"] = max(readings["attr_err"], attr_err)
         readings["table_err"] = max(readings["table_err"], table_err)
         scenes[name] = (scene, covered)
-        # The plain version, warm from the comparison: one call, as it takes
-        # seconds at these shapes (it tests every pixel against every face).
-        readings[f"plain_ms_{name}"] = once_ms(
-            lambda: rasterize_packed_plain(scene.tables))
-        log(f"[phase 6a] rasterize {name}: plain version "
-            f"{readings[f'plain_ms_{name}']:.2f} ms (one call)")
+        readings[f"plain_ms_{name}"] = plain_raster_ms("phase 6a", name, scene)
     lap("phase 6a")
 
     # (b) the entry point: 16 frames at batch 8 (2 batches), 4 at batch 1.
@@ -2310,8 +2338,6 @@ def time_train_steps(device, cfg=None, tag="phase 7d"):
 def phase_train(workdir, device):
     """Phase 7: training at full width (see the module docstring)."""
     from hierarchicalprobabilistic3dhuman_torch.cli.train import main as train_main
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        rasterize_packed_plain)
     t0 = time.perf_counter()
 
     def lap(tag):
@@ -2347,9 +2373,7 @@ def phase_train(workdir, device):
     readings["kernel"] = time_rasterizer("phase 7d", "train", scene, covered)
     readings["pack"] = time_pack({"train": (scene, covered)},
                                  tag="phase 7d")["train"]
-    readings["plain_ms"] = once_ms(lambda: rasterize_packed_plain(scene.tables))
-    log(f"[phase 7d] rasterize train: plain version {readings['plain_ms']:.2f} "
-        f"ms (one call)")
+    readings["plain_ms"] = plain_raster_ms("phase 7d", "train", scene)
     readings["raster_step"] = time_raster_step("train", scene, tag="phase 7d")
     lap("phase 7d")
     return readings
@@ -3177,6 +3201,7 @@ def check_rank_kernels(name, scene):
             "meshes": int(scene.screen.shape[0]),
             "hw": list(scene.tables.image_hw),
             **time_rasterizer("phase 10b", name, scene, covered),
+            "plain_ms": plain_raster_ms("phase 10b", name, scene),
             "pack": time_pack({name: (scene, covered)}, tag="phase 10b")[name]}
 
 
@@ -3899,6 +3924,333 @@ def phase_parallel(workdir, device):
     return readings
 
 
+GOLDEN_STEPS = 4                 # Adam steps per loss stage, as in the CPU test
+GOLDEN_SMALL = {"img_wh": 48, "num_samples": 2, "embed_dim": 64}
+GOLDEN_BATCH = 2
+GOLDEN_STEP_MIN, GOLDEN_STATE_MIN = 1e-4, 1e-3
+BF16_LIMITS = {"median step loss": 0.25, "summed loss": 0.5, "median PVE": 0.25}
+
+
+def golden_cfg(img_wh=256, num_samples=8, embed_dim=256):
+    """The training configuration of a trajectory: phase 7's at full width,
+    tests/test_torch_golden_run.py's (GOLDEN_SMALL) at the small size."""
+    cfg = train_cfg(img_wh, num_samples)
+    cfg.MODEL.EMBED_DIM = embed_dim
+    return cfg
+
+
+def golden_batches(steps, batch=GOLDEN_BATCH, img_wh=GOLDEN_SMALL["img_wh"],
+                   seed=123):
+    """`steps` batches of float32 poses, backgrounds and 60 x 40 textures in
+    [0, 1] from np.random.RandomState(seed), drawn in the order of the JAX
+    package's tests/test_golden_run.py."""
+    rng = np.random.RandomState(seed)
+    return [((rng.randn(batch, 72) * 0.3).astype(np.float32),
+             rng.rand(batch, 3, img_wh, img_wh).astype(np.float32),
+             rng.rand(batch, 60, 40, 3).astype(np.float32))
+            for _ in range(steps)]
+
+
+def step_scalars(loss, sums, terms):
+    """A train step's loss, loss terms and metric sums, as floats."""
+    return {"loss": float(loss),
+            **{f"term {k}": float(v) for k, v in terms.items()},
+            **{f"sum {k}": float(v) for k, v in sums.items()}}
+
+
+def float64_copy(t):
+    """A float64 copy of `t` on the CPU (a copy even where `t` is one)."""
+    return t.detach().to("cpu", torch.float64, copy=True)
+
+
+def bn_statistics(state_dict):
+    """Copies of the BatchNorm running means and variances of a state dict,
+    float64 on the CPU."""
+    return {f"buffer {n}": float64_copy(v) for n, v in state_dict.items()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def train_state(names, state_dict, adam):
+    """The state a trajectory ends in: {name: float64 CPU tensor} of the
+    parameters `names`, the BatchNorm statistics and Adam's first and second
+    moments (`adam` maps each parameter's index to its torch.optim.Adam
+    state), and the set of Adam's step counts."""
+    out = {f"param {n}": float64_copy(state_dict[n]) for n in names}
+    out.update(bn_statistics(state_dict))
+    for i, n in enumerate(names):
+        out[f"mu {n}"] = float64_copy(adam[i]["exp_avg"])
+        out[f"nu {n}"] = float64_copy(adam[i]["exp_avg_sq"])
+    return out, {int(s["step"]) for s in adam.values()}
+
+
+def model_train_state(model, optimizer):
+    """train_state of a model and its torch.optim.Adam."""
+    return train_state([n for n, _ in model.named_parameters()],
+                       model.state_dict(),
+                       {i: optimizer.state[p] for i, p in enumerate(model.parameters())})
+
+
+def scalar_rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-6)
+
+
+def golden_ratios(run, ref, run32, run64):
+    """Each compared quantity of trajectory `run` against `ref`, over its
+    bound. The float32 noise floor is the gap between `run32` (float32) and
+    `run64` (the same trajectory with the predictor and Adam in float64).
+    After every step: the loss, loss terms and metric sums within
+    max(GOLDEN_STEP_MIN, 10 x the step's floor) relative, the step's floor
+    being the largest relative gap of its scalars (one scalar's own gap is a
+    single draw of the trajectory's chaos, the step's largest says how far
+    the weights have moved apart); and every BatchNorm running mean and
+    variance within max(GOLDEN_STATE_MIN, 10 x its floor) of its largest
+    entry. After the last step: every parameter, BatchNorm statistic and
+    Adam moment the same way, and Adam's step counts equal.
+
+    A trajectory is {"steps": [scalars], "stats": [BatchNorm statistics],
+    "state": (tensors, step counts)}, one entry a step.
+    """
+    out = {}
+    for k, (s, r, a, b) in enumerate(zip(run["steps"], ref["steps"],
+                                         run32["steps"], run64["steps"])):
+        if sorted(s) != sorted(r):
+            raise AssertionError(f"step {k}: {sorted(s)} vs {sorted(r)}")
+        bound = max(GOLDEN_STEP_MIN, 10 * max(scalar_rel(a[q], b[q]) for q in b))
+        out.update({f"step {k} {q}": scalar_rel(s[q], r[q]) / bound for q in r})
+        out.update({f"step {k} {n}": rel_diff(run["stats"][k][n], t) / max(
+            GOLDEN_STATE_MIN, 10 * rel_diff(run32["stats"][k][n], run64["stats"][k][n]))
+            for n, t in ref["stats"][k].items()})
+    (state, counts), (ref_state, ref_counts) = run["state"], ref["state"]
+    if len(run["steps"]) != len(ref["steps"]) or sorted(state) != sorted(ref_state):
+        raise AssertionError("the trajectories differ in length or names")
+    state32, state64 = run32["state"][0], run64["state"][0]
+    out.update({f"final {n}": rel_diff(state[n], t) / max(
+        GOLDEN_STATE_MIN, 10 * rel_diff(state32[n], state64[n]))
+        for n, t in ref_state.items()})
+    out["final Adam step count"] = 0.0 if counts == ref_counts else float("inf")
+    return out
+
+
+def report_ratios(tag, what, ratios):
+    """Log the largest ratios to the rule, per-step scalars, per-step
+    BatchNorm statistics and the final state apart.
+
+    :return: the largest ratio
+    """
+    kinds = {"scalars": [], "statistics": [], "final": []}
+    for k, v in ratios.items():
+        kinds["final" if k.startswith("final") else
+              "statistics" if " buffer " in k else "scalars"].append(v)
+    worst = sorted(ratios, key=ratios.get, reverse=True)[:4]
+    log(f"[{tag}] {what}: largest ratio to the rule: " + ", ".join(
+        f"{kind} {max(v):.3f} (median {statistics.median(v):.3f})"
+        for kind, v in kinds.items()) + f"; worst "
+        f"{[(k, round(ratios[k], 3)) for k in worst]}")
+    return max(ratios.values())
+
+
+def golden_trajectory(device, cfg, batches, seed=0, float64=False, bf16=False,
+                      draws_device=None, recorder=None):
+    """GOLDEN_STEPS stage-1 then GOLDEN_STEPS stage-2 train steps of the
+    port, as its loop runs them: the model and Adam of
+    build_model_and_optimizer (weights from `seed`), a new TrainStep per
+    stage, and one draw source through both (a generator seeded `seed` on
+    `draws_device`, by default `device`). `float64` puts the predictor and
+    Adam's master weights in float64 (Float64Predictor); `bf16` the encoder
+    under bfloat16 autocast; `recorder`, a CallRecorder, takes the render.
+
+    :return: the trajectory (see golden_ratios) and each step's ms (host
+        clock, ending in a synchronize on the card)
+    """
+    from hierarchicalprobabilistic3dhuman_torch.cli.train import (
+        build_model_and_optimizer)
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        TrainStep)
+    from hierarchicalprobabilistic3dhuman_torch.utils.random_draws import Draws
+    model, optimizer, _ = build_model_and_optimizer(cfg, device, rng_seed=seed,
+                                                    bf16_encoder=bf16)
+    predictor = model
+    if float64:
+        model.double()          # in place: Adam keeps the same parameters
+        predictor = Float64Predictor(model)
+    smpl, renderer, edge = train_tools(device, cfg)
+    if recorder is not None:
+        recorder.renderer, recorder.faces = renderer, renderer.faces
+        renderer = recorder
+    draws = Draws(torch.Generator(device=draws_device or device).manual_seed(seed),
+                  device)
+    run, ms, data = {"steps": [], "stats": []}, [], iter(batches)
+    for stage in (1, 2):
+        metrics = TRAIN_METRICS + (["joints2Dsamples-L2E"] if stage == 2 else [])
+        step = TrainStep(predictor, cfg, smpl, renderer, edge,
+                         getattr(cfg.LOSS, f"STAGE{stage}"), optimizer,
+                         train=True, metrics_to_track=metrics)
+        for _ in range(GOLDEN_STEPS):
+            batch = next(data)
+            t0 = time.perf_counter()
+            scalars = step_scalars(*step(draws, *batch))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            run["steps"].append(scalars)
+            run["stats"].append(bn_statistics(model.state_dict()))
+    run["state"] = model_train_state(model, optimizer)
+    return run, ms
+
+
+def golden_small(device):
+    """Phase 11a: the CPU test's trajectory (GOLDEN_SMALL) on the card under
+    deterministic algorithms, K1 and pack_faces in its render, against the
+    same trajectory on the CPU (their plain versions), in this process:
+    the same weights, batches and draws (a CPU generator's, delivered to
+    each device). Held by golden_ratios, the floor being the card's
+    float64-predictor trajectory.
+
+    :return: readings
+    """
+    cpu = torch.device("cpu")
+    cfg = golden_cfg(**GOLDEN_SMALL)
+    host = golden_batches(2 * GOLDEN_STEPS)
+
+    def trajectory(dev, **kwargs):
+        batches = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in host]
+        return golden_trajectory(dev, cfg, batches, draws_device=cpu, **kwargs)
+
+    recorder = CallRecorder(None)
+    t0 = time.perf_counter()
+    cpu32, _ = trajectory(cpu)
+    cpu_s = time.perf_counter() - t0
+    with deterministic_algorithms():
+        (card32, ms), launches = run_path(
+            "phase 11a", f"{GOLDEN_STEPS} + {GOLDEN_STEPS} steps at B="
+            f"{GOLDEN_BATCH}, {GOLDEN_SMALL['img_wh']}^2 on the card",
+            lambda: trajectory(device, recorder=recorder), expect=2 * GOLDEN_STEPS)
+        (card64, _), _ = run_path(
+            "phase 11a", "the same with a float64 predictor and Adam",
+            lambda: trajectory(device, float64=True), expect=2 * GOLDEN_STEPS)
+    log(f"[phase 11a] CPU trajectory {cpu_s:.1f} s; card steps "
+        f"{[round(t, 1) for t in ms]} ms")
+    for k, (a, b) in enumerate(zip(card32["steps"], cpu32["steps"])):
+        log(f"[phase 11a] step {k}: loss card {a['loss']:.7g} CPU {b['loss']:.7g} "
+            f"({scalar_rel(a['loss'], b['loss']):.1e} rel; floor "
+            f"{max(scalar_rel(a[q], card64['steps'][k][q]) for q in a):.1e})")
+    worst = report_ratios("phase 11a", "card vs CPU",
+                          golden_ratios(card32, cpu32, card32, card64))
+    if not worst <= 1.0:
+        raise AssertionError("[phase 11a] the card's trajectory leaves the "
+                             "CPU's beyond the rule")
+    _, attr_err, table_err, _ = hold_to_plain("phase 11a", "small trajectory's "
+                                              "last render", recorder.scene())
+    return {"worst_ratio": worst, "launches": launches, "attr_err": attr_err,
+            "table_err": table_err, "step_ms": ms}
+
+
+def golden_full_batches(device, cfg, seed=11):
+    """2 x GOLDEN_STEPS loader batches of the synthetic fallback dataset at
+    the configuration's batch and proxy size (uint8 1200 x 800 atlases),
+    uploaded to `device`."""
+    from hierarchicalprobabilistic3dhuman_torch.data.loader import DataLoader
+    from hierarchicalprobabilistic3dhuman_torch.data.on_the_fly_smpl_train_dataset import (
+        OnTheFlySMPLTrainDataset)
+    from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
+        batch_to_device)
+    B = cfg.TRAIN.BATCH_SIZE
+    dataset = OnTheFlySMPLTrainDataset.synthetic(
+        n=2 * GOLDEN_STEPS * B, img_wh=cfg.DATA.PROXY_REP_SIZE, seed=seed)
+    return [batch_to_device(b, device)
+            for b in DataLoader(dataset, batch_size=B, num_workers=0)]
+
+
+def same_trajectory(a, b):
+    """Two trajectories bit-equal: every step's scalars and BatchNorm
+    statistics, the final parameters, statistics and Adam state."""
+    (sa, ca), (sb, cb) = a["state"], b["state"]
+    return (a["steps"] == b["steps"] and ca == cb and sorted(sa) == sorted(sb)
+            and all(torch.equal(sa[n], sb[n]) for n in sb)
+            and all(torch.equal(x[n], y[n]) for x, y in zip(a["stats"], b["stats"])
+                    for n in y))
+
+
+def golden_full(device):
+    """Phase 11b: GOLDEN_STEPS + GOLDEN_STEPS steps at phase 7's full width
+    from one seed, twice under deterministic algorithms (bit-equal, finite),
+    then with the bfloat16 encoder (held to the float32 run by the JAX
+    package's test_bf16_encoder_training_tracks_f32 criteria); K1 and
+    pack_faces held to their plain versions on the last step's tables.
+
+    :return: readings
+    """
+    cfg = golden_cfg()
+    B = cfg.TRAIN.BATCH_SIZE
+    batches = golden_full_batches(device, cfg)
+    recorder = CallRecorder(None)
+    runs, readings = {}, {"launches": {}}
+    for name, kwargs in (("float32", {"recorder": recorder}), ("float32 again", {}),
+                         ("bf16 encoder", {"bf16": True})):
+        with deterministic_algorithms():
+            (runs[name], ms), launches = run_path(
+                "phase 11b", f"{GOLDEN_STEPS} + {GOLDEN_STEPS} steps at B={B}, "
+                f"{cfg.DATA.PROXY_REP_SIZE}^2, {name}",
+                lambda: golden_trajectory(device, cfg, batches, **kwargs),
+                expect=2 * GOLDEN_STEPS)
+        stage_ms = [statistics.median(ms[:GOLDEN_STEPS]),
+                    statistics.median(ms[GOLDEN_STEPS:])]
+        readings["launches"][f"golden_{name.replace(' ', '_')}"] = launches
+        readings[f"step_ms_{name.replace(' ', '_')}"] = stage_ms
+        log(f"[phase 11b] {name}: losses "
+            f"{[round(s['loss'], 3) for s in runs[name]['steps']]}; step ms "
+            f"{[round(t, 1) for t in ms]}, median stage 1 {stage_ms[0]:.1f}, "
+            f"stage 2 {stage_ms[1]:.1f} ({card_line()})")
+    f32, again, bf16 = runs["float32"], runs["float32 again"], runs["bf16 encoder"]
+    finite = all(np.isfinite(s["loss"]) for r in runs.values() for s in r["steps"])
+    equal = same_trajectory(f32, again)
+    log(f"[phase 11b] two float32 runs under deterministic algorithms "
+        f"bit-equal (losses, terms, sums, BatchNorm statistics every step; "
+        f"weights and Adam's state at the end): {equal}; every loss finite "
+        f"{finite}")
+    if not (equal and finite):
+        raise AssertionError("[phase 11b] the full-width trajectory is not "
+                             "deterministic or not finite")
+
+    def per_step(run, key, scale=1.0):
+        return np.asarray([s[key] / scale for s in run["steps"]])
+
+    loss32, loss16 = per_step(f32, "loss"), per_step(bf16, "loss")
+    pve32, pve16 = per_step(f32, "sum PVE", B), per_step(bf16, "sum PVE", B)
+    bf16_diffs = {
+        "median step loss": float(np.median(np.abs(loss16 - loss32) / np.abs(loss32))),
+        "summed loss": float(abs(loss16.sum() - loss32.sum()) / abs(loss32.sum())),
+        "median PVE": float(np.median(np.abs(pve16 - pve32) / np.abs(pve32)))}
+    log(f"[phase 11b] bf16 encoder vs float32: "
+        + ", ".join(f"{k} rel {v:.4f} (limit {BF16_LIMITS[k]})"
+                    for k, v in bf16_diffs.items()))
+    if not all(v < BF16_LIMITS[k] for k, v in bf16_diffs.items()):
+        raise AssertionError("[phase 11b] the bf16-encoder trajectory left "
+                             "the float32 one")
+    _, attr_err, table_err, _ = hold_to_plain(
+        "phase 11b", "full-width trajectory's last render", recorder.scene())
+    readings.update(bf16=bf16_diffs, attr_err=attr_err, table_err=table_err)
+    return readings
+
+
+def phase_golden(device):
+    """Phase 11: the training trajectory on the card (see the module
+    docstring).
+
+    :return: readings
+    """
+    t0 = time.perf_counter()
+    small = golden_small(device)
+    log(f"[phase 11a] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    full = golden_full(device)
+    log(f"[phase 11b] took {time.perf_counter() - t0:.1f} s")
+    full["launches"]["golden_small"] = small.pop("launches")
+    return {**full, "small": small,
+            "attr_err": max(small["attr_err"], full["attr_err"]),
+            "table_err": max(small["table_err"], full["table_err"])}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3932,6 +4284,7 @@ def main():
         resnet50 = timed_phase("phase 8", phase_resnet50, workdir, device)
         native = timed_phase("phase 9", phase_native, workdir, device)
         parallel = timed_phase("phase 10", phase_parallel, workdir, device)
+    golden = timed_phase("phase 11", phase_golden, device)
 
     pack = timing["pack"]
     pack_by_path = {**pack, **batched["pack"], **evaluation["pack"],
@@ -3945,7 +4298,8 @@ def main():
                      "train_resume_1_epoch": training["resume_launches"],
                      **resnet50["launches"],
                      **native["launches"],
-                     **parallel["launches"]}
+                     **parallel["launches"],
+                     **golden["launches"]}
     kernels = [{
         "name": "rasterize",
         "route": "cuda",
@@ -3954,7 +4308,8 @@ def main():
         "launches": launches["rasterize"],
         "max_abs_err": max(attr_err, batched["attr_err"], evaluation["attr_err"],
                            training["attr_err"], resnet50["attr_err"],
-                           native["attr_err"], parallel["attr_err"]),
+                           native["attr_err"], parallel["attr_err"],
+                           golden["attr_err"]),
         "ms": timing["predict"]["kernel_ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["predict"]["bound_ms"],
@@ -3975,9 +4330,11 @@ def main():
         "ms_batched": batched["kernels"]["batched"]["kernel_ms"],
         "bound_ms_batched": batched["kernels"]["batched"]["bound_ms"],
         "bound_by_batched": batched["kernels"]["batched"]["bound_by"],
+        "plain_ms_batched": batched["kernels"]["batched"]["plain_ms"],
         "ms_samples": batched["kernels"]["samples"]["kernel_ms"],
         "bound_ms_samples": batched["kernels"]["samples"]["bound_ms"],
         "bound_by_samples": batched["kernels"]["samples"]["bound_by"],
+        "plain_ms_samples": batched["kernels"]["samples"]["plain_ms"],
         **{f"{key}_{name}": evaluation["kernels"][name][field]
            for name in ("eval_mode", "eval_samples")
            for key, field in (("ms", "kernel_ms"), ("bound_ms", "bound_ms"),
@@ -3985,7 +4342,8 @@ def main():
         **{f"plain_ms_{name}": evaluation[f"plain_ms_{name}"]
            for name in ("eval_mode", "eval_samples")},
         "sharded_paths": {name: {k: v[k] for k in ("meshes", "hw", "kernel_ms",
-                                                   "bound_ms", "bound_by")}
+                                                   "bound_ms", "bound_by",
+                                                   "plain_ms")}
                           for name, v in parallel["kernels"].items()},
         "device_launches_per_call": timing["device_launches_per_call"],
         "launches_by_path": {k: v["rasterize"] for k, v in path_launches.items()},
@@ -3998,7 +4356,8 @@ def main():
         "launches": launches["pack_face_tables"],
         "max_abs_err": max(table_err, batched["table_err"], evaluation["table_err"],
                            training["table_err"], resnet50["table_err"],
-                           native["table_err"], parallel["table_err"]),
+                           native["table_err"], parallel["table_err"],
+                           golden["table_err"]),
         "ms": pack["predict"]["kernel_ms"],
         "device_ms": pack["predict"]["device_ms"],
         "plain_ms": pack["predict"]["plain_ms"],
@@ -4020,7 +4379,8 @@ def main():
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
     for tag, readings in (("phase 5", batched), ("phase 6", evaluation),
                           ("phase 7", training), ("phase 8", resnet50),
-                          ("phase 9", native), ("phase 10", parallel)):
+                          ("phase 9", native), ("phase 10", parallel),
+                          ("phase 11", golden)):
         log(f"[{tag}] readings " + json.dumps(
             {k: v for k, v in readings.items()
              if k not in ("kernels", "pack", "raster_step", "launches",

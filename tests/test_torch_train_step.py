@@ -38,7 +38,6 @@ from functools import partial
 import flax.linen
 import numpy as np
 import jax
-import jax.experimental.pallas as pl
 import jax.numpy as jnp
 import optax
 import pytest
@@ -47,46 +46,25 @@ import torch
 import chip_smoke
 from hierarchicalprobabilistic3dhuman_tpu.configs import (
     get_pose_shape_cfg_defaults as j_cfg)
-from hierarchicalprobabilistic3dhuman_tpu.models.canny_edge_detector import (
-    CannyEdgeDetector as JCanny)
-from hierarchicalprobabilistic3dhuman_tpu.models.pose_mf_shape_gaussian_net import (
-    PoseMFShapeGaussianNet as JPredictor)
-from hierarchicalprobabilistic3dhuman_tpu.models.smpl import SMPL as JSMPL
-from hierarchicalprobabilistic3dhuman_tpu.renderers.textured_iuv_renderer import (
-    TexturedIUVRenderer as JRenderer)
 from hierarchicalprobabilistic3dhuman_tpu.train.train_pose_mf_shape_gaussian_net import (
-    TrainState, make_train_step as j_make_train_step)
+    TrainState)
 
 from hierarchicalprobabilistic3dhuman_torch.configs import (
     get_pose_shape_cfg_defaults as t_cfg)
-from hierarchicalprobabilistic3dhuman_torch.models.canny_edge_detector import (
-    CannyEdgeDetector as TCanny)
 from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
     PoseMFShapeGaussianNet as TPredictor)
-from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL as TSMPL
 from hierarchicalprobabilistic3dhuman_torch.models.weights import (
     flax_to_torch_predictor)
-from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
-    TexturedIUVRenderer as TRenderer)
-from hierarchicalprobabilistic3dhuman_torch.train.train_pose_mf_shape_gaussian_net import (
-    TrainStep)
+from _torch_train_fixtures import (
+    EMBED, Float64Predictor, init_jax_predictor, jax_train_step,
+    pallas_interpret, port_train_step, small_cfg)
 from jax_draws import JaxDraws
 
 torch.set_num_threads(2)
 
-D, B, EMBED = 48, 2, 64
+D, B = 48, 2
 METRICS = ['PVE', 'PVE-SC', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC', 'MPJPE-PA',
            'joints2D-L2E']
-
-
-def _cfg(get, size, layers):
-    cfg = get()
-    cfg.DATA.PROXY_REP_SIZE = size
-    cfg.MODEL.NUM_RESNET_LAYERS = layers
-    cfg.MODEL.EMBED_DIM = EMBED
-    cfg.LOSS.NUM_SAMPLES = 2
-    cfg.TRAIN.SYNTH_DATA.FOCAL_LENGTH = 300.0 * size / 256
-    return cfg
 
 
 def _grad_capture():
@@ -96,18 +74,6 @@ def _grad_capture():
         lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
         lambda grads, state, params=None: (
             jax.tree_util.tree_map(jnp.zeros_like, grads), grads))
-
-
-class Float64Predictor(torch.nn.Module):
-    """A float64 predictor in a float32 step: float32 input in, outputs
-    rounded to float32 out."""
-
-    def __init__(self, model64):
-        super().__init__()
-        self.model = model64
-
-    def forward(self, x):
-        return {k: v.float() for k, v in self.model(x.double()).items()}
 
 
 class GivenInput(torch.nn.Module):
@@ -260,28 +226,19 @@ def check_step_matches_jax(batch, stage, layers, size, resnet50_rule=False):
     The JAX package's and the port's float64 gradients from the same input
     and upstream gradient agree within 6e-8 of each tensor's largest.
     """
-    jc, tc = _cfg(j_cfg, size, layers), _cfg(t_cfg, size, layers)
-    F = jc.TRAIN.SYNTH_DATA.FOCAL_LENGTH
+    jc, tc = small_cfg(j_cfg, size, layers), small_cfg(t_cfg, size, layers)
     stage_metrics = METRICS + (["joints2Dsamples-L2E"] if stage == 2 else [])
     key = jax.random.PRNGKey(30 + stage)
 
-    jmodel = JPredictor(num_resnet_layers=layers, embed_dim=EMBED)
-    variables = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(
-        jax.random.PRNGKey(stage), jnp.zeros((1, 18, size, size))))
+    jmodel, variables = init_jax_predictor(layers, size, seed=stage)
     jpredictor = TappedPredictor(jmodel) if resnet50_rule else jmodel
     opt = _grad_capture()
     state = TrainState(variables["params"], variables["batch_stats"],
                        opt.init(variables["params"]))
     t_jax = time.perf_counter()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pl, "pallas_call", partial(pl.pallas_call, interpret=True))
-        jstep = j_make_train_step(
-            jpredictor, jc, JSMPL.synthetic(),
-            JRenderer(img_wh=size, projection_type="perspective",
-                      perspective_focal_length=F, render_rgb=True,
-                      backend="pallas"),
-            JCanny(threshold=0.0), getattr(jc.LOSS, f"STAGE{stage}"), opt,
-            train=True, jit=False, metrics_to_track=stage_metrics)
+    with pallas_interpret():
+        jstep = jax_train_step(jpredictor, jc, getattr(jc.LOSS, f"STAGE{stage}"),
+                               opt, stage_metrics)
         new_state, jloss, jsums, jterms = jax.jit(jstep)(
             state, key, *(jnp.asarray(a) for a in batch))
 
@@ -302,12 +259,8 @@ def check_step_matches_jax(batch, stage, layers, size, resnet50_rule=False):
         if resnet50_rule:
             predictor = GivenInput(predictor, jproxy)
         optimizer = torch.optim.Adam(predictor.parameters(), lr=1e-4)
-        step = TrainStep(
-            predictor, tc, TSMPL.synthetic("cpu"),
-            TRenderer("cpu", img_wh=size, projection_type="perspective",
-                      perspective_focal_length=F, render_rgb=True),
-            TCanny("cpu", threshold=0.0), getattr(tc.LOSS, f"STAGE{stage}"),
-            optimizer, train=True, metrics_to_track=stage_metrics)
+        step = port_train_step(predictor, tc, getattr(tc.LOSS, f"STAGE{stage}"),
+                               optimizer, stage_metrics)
         out = step(JaxDraws(key), *(torch.from_numpy(a) for a in batch))
         return out, predictor
 
