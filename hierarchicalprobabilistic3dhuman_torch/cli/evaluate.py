@@ -13,7 +13,10 @@ weights, and --svd_impl auto taking the LAPACK-sign SVD exactly for a
 reference checkpoint. Added: --device (default cuda; a run that asks for
 cuda and finds none fails). `lapack_callback` is numpy's sgesdd on a host
 copy on every device: it is never swapped for `lapack`. --profile_dir DIR
-writes a torch.profiler Chrome trace of the evaluation to DIR/trace.json.
+writes one torch.profiler Chrome trace of the evaluation to DIR/trace.json:
+the card's kernels, copies and memsets (the CPU's operators with --device
+cpu) and the program's spans (eval.step with pose_head; host_syncs counts)
+on one timeline.
 
 Several devices (parallel/launch.py): --num_devices N (default: every
 visible card; 1 keeps the plain single-device path) starts N ranks and
@@ -185,8 +188,11 @@ def build_parser():
                         help="Size of the mesh 'sample' axis (distribution "
                              "samples shard across it).")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="Write a torch.profiler Chrome trace of "
-                             "evaluation to DIR/trace.json.")
+                        help="Write one torch.profiler Chrome trace of "
+                             "evaluation to DIR/trace.json: the card's "
+                             "activity (the CPU's operators with --device "
+                             "cpu) and the program's spans on one "
+                             "timeline.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cuda' (default) fails if there "
                              "is no card, 'cpu' runs the plain versions.")

@@ -17,8 +17,11 @@ package. --native_data_dir DIR trains from stores packed by
 data/pack_training_stores.py (DIR/train and DIR/val where they exist,
 else DIR for both), read by the C++ sampler of data/native_loader.py (the
 stores' record counts may differ; an epoch is the poses store's count over
-the batch size); no dataset is built then. --profile_dir DIR writes a
-torch.profiler Chrome trace of the run to DIR/trace.json.
+the batch size); no dataset is built then. --profile_dir DIR writes one
+torch.profiler Chrome trace of the run to DIR/trace.json: the card's
+kernels, copies and memsets (the CPU's operators with --device cpu) and the
+program's spans (train.step: synth, forward with pose_head, backward,
+optimizer; data.next; host_syncs counts) on one timeline.
 MODEL.NUM_RESNET_LAYERS (-O) picks ResNet-18 or ResNet-50. The
 checkpoints it writes are the reference's torch dicts; a port-trained
 predictor was trained on the Jacobi SVD's signs, so evaluate it with
@@ -309,10 +312,12 @@ def build_parser():
                              "(parameters, BatchNorm and head stay float32; "
                              "checkpoints unchanged).")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="Write a torch.profiler Chrome trace of "
-                             "training to DIR/trace.json (every event is "
-                             "held until the run ends: keep such runs "
-                             "short).")
+                        help="Write one torch.profiler Chrome trace of "
+                             "training to DIR/trace.json: the card's "
+                             "activity (the CPU's operators with --device "
+                             "cpu) and the program's spans on one timeline "
+                             "(every event is held until the run ends: "
+                             "keep such runs short).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; fails without a card) or cpu.")
     return parser

@@ -27,6 +27,8 @@ from functools import lru_cache
 
 import numpy as np
 
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_PATH = os.path.join(_PKG_DIR, "csrc", "batch_sampler.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "hp3d_torch_native")
@@ -136,9 +138,10 @@ class NativeBatchSampler:
         """:return: list of (batch_size, ...) arrays, one per store."""
         if self._handle is None:
             raise RuntimeError("the sampler is closed")
-        buf = np.empty(self._batch_bytes, np.uint8)
-        rc = self._lib.bs_next(self._handle,
-                               buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        with span("data.next"):
+            buf = np.empty(self._batch_bytes, np.uint8)
+            rc = self._lib.bs_next(
+                self._handle, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
         if rc != 0:
             raise RuntimeError(f"bs_next failed with {rc}")
         out = []

@@ -53,6 +53,7 @@ from hierarchicalprobabilistic3dhuman_torch.parallel.sharded_train import (
     make_sharded_eval_step)
 from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
     TexturedIUVRenderer)
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import count, span
 from hierarchicalprobabilistic3dhuman_torch.utils.cam_utils import (
     orthographic_project)
 from hierarchicalprobabilistic3dhuman_torch.utils.joints2d_utils import (
@@ -301,16 +302,18 @@ def make_eval_step(pose_shape_model, smpl_neutral, smpl_male, smpl_female,
         _step = make_sharded_eval_step(_step, mesh)
 
     def step(*args):
-        with torch.inference_mode():
+        with span("eval.step"), torch.inference_mode():
             return _step(*args)
 
     return step
 
 
 def _to_host(tree):
-    """Tensors (in nested dicts) -> numpy arrays."""
+    """Tensors (in nested dicts) -> numpy arrays; each copy a blocking
+    read (counter `host_syncs`)."""
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
+    count("host_syncs")
     return tree.detach().cpu().numpy()
 
 

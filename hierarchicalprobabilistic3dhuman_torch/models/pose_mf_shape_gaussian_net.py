@@ -36,6 +36,7 @@ from hierarchicalprobabilistic3dhuman_torch.models.resnet import resnet18, resne
 from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL_PARENTS
 from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import (
     proper_svd3x3, proper_svd3x3_gesdd, proper_svd3x3_lapack)
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import span
 from hierarchicalprobabilistic3dhuman_torch.utils.device import full_f32_matmul
 
 SVD_IMPLS = ("jacobi", "lapack", "lapack_callback")
@@ -115,7 +116,7 @@ class PoseMFShapeGaussianNet(nn.Module):
                             enabled=self.encoder_bf16):
             # float32 out: each BatchNorm normalises in float32.
             feats = self.image_encoder(inputs)
-        with full_f32_matmul():
+        with full_f32_matmul(), span("pose_head"):
             return self._head(feats)
 
     def _head(self, feats):

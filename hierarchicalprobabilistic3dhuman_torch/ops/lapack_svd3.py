@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import count
+
 # slamch constants for f32.
 _EPS = np.float32(2.0 ** -24)           # slamch('E')
 _UNFL = np.float32(1.1754943508222875e-38)  # slamch('S')
@@ -584,6 +586,8 @@ def _bdsqr3(d, e, VT, U, thresh):
 
     d, VT, U = pass_swap(d, VT, U, upto=3, tgt=2)
     d, VT, U = pass_swap(d, VT, U, upto=2, tgt=1)
+    # One blocking read a test of the loop's condition.
+    count("host_syncs", iterations + 1)
     return d, VT, U, iterations
 
 

@@ -13,6 +13,7 @@ detectors of predict/keypoint_detector.py, or None for the whole image
 import numpy as np
 import torch
 
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import span
 from hierarchicalprobabilistic3dhuman_torch.utils.image_utils import (
     batch_crop_affine, convert_bbox_corners_to_centre_hw)
 
@@ -107,34 +108,35 @@ def make_hrnet_batch_predictor(hrnet, hrnet_config, device,
     @torch.inference_mode()
     def predict_batch(images, object_detect_fn=None,
                       object_detect_threshold=0.8):
-        rgb = _as_float_rgb(images)
-        B, _, H, W = rgb.shape
-        centres = np.empty((B, 2), np.float32)
-        # Box sizes stay in host floats, as the per-image predictor returns
-        # them; the crop rounds them to float32.
-        heights = np.empty((B,), np.float64)
-        widths = np.empty((B,), np.float64)
-        for i in range(B):
-            det = (object_detect_fn(rgb[i]) if object_detect_fn is not None
-                   else None)
-            c, h, w = select_centremost_person_box(
-                det, (H, W), threshold=object_detect_threshold)
-            h, w = _fix_box_aspect(h, w, aspect)
-            centres[i], heights[i], widths[i] = c, h, w
+        with span("predict.hrnet"):
+            rgb = _as_float_rgb(images)
+            B, _, H, W = rgb.shape
+            centres = np.empty((B, 2), np.float32)
+            # Box sizes stay in host floats, as the per-image predictor returns
+            # them; the crop rounds them to float32.
+            heights = np.empty((B,), np.float64)
+            widths = np.empty((B,), np.float64)
+            for i in range(B):
+                det = (object_detect_fn(rgb[i]) if object_detect_fn is not None
+                       else None)
+                c, h, w = select_centremost_person_box(
+                    det, (H, W), threshold=object_detect_threshold)
+                h, w = _fix_box_aspect(h, w, aspect)
+                centres[i], heights[i], widths[i] = c, h, w
 
-        cropped = batch_crop_affine(
-            (in_w, in_h), rgb=rgb,
-            bbox_centres=torch.as_tensor(centres, device=device),
-            bbox_heights=torch.as_tensor(heights, dtype=torch.float32,
-                                         device=device),
-            bbox_widths=torch.as_tensor(widths, dtype=torch.float32,
-                                        device=device),
-            orig_scale_factor=bbox_scale_factor)["rgb"]
-        heatmaps = hrnet((cropped - mean) / std)
-        joints2D, confs = get_kp_locations_confs_from_heatmaps(heatmaps)
-        return {"joints2D": joints2D * kp_rescale, "joints2Dconfs": confs,
-                "cropped_image": cropped, "bbox_centres": centres,
-                "bbox_heights": heights, "bbox_widths": widths}
+            cropped = batch_crop_affine(
+                (in_w, in_h), rgb=rgb,
+                bbox_centres=torch.as_tensor(centres, device=device),
+                bbox_heights=torch.as_tensor(heights, dtype=torch.float32,
+                                             device=device),
+                bbox_widths=torch.as_tensor(widths, dtype=torch.float32,
+                                            device=device),
+                orig_scale_factor=bbox_scale_factor)["rgb"]
+            heatmaps = hrnet((cropped - mean) / std)
+            joints2D, confs = get_kp_locations_confs_from_heatmaps(heatmaps)
+            return {"joints2D": joints2D * kp_rescale, "joints2Dconfs": confs,
+                    "cropped_image": cropped, "bbox_centres": centres,
+                    "bbox_heights": heights, "bbox_widths": widths}
 
     return predict_batch
 

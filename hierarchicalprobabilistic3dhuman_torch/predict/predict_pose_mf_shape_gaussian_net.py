@@ -33,6 +33,7 @@ from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
     make_hrnet_batch_predictor, make_hrnet_predictor)
 from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
     TexturedIUVRenderer)
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import count, span
 from hierarchicalprobabilistic3dhuman_torch.utils.image_utils import (
     batch_add_rgb_background, batch_crop_affine, batch_uncrop_affine)
 from hierarchicalprobabilistic3dhuman_torch.utils.label_conversions import (
@@ -171,85 +172,86 @@ def make_predict_core(pose_shape_model, pose_shape_cfg, smpl_model,
 
     @torch.inference_mode()
     def core(hr_cropped, joints2D, confs, generator=None, eps=None, w=None):
-        B = hr_cropped.shape[0]
-        device = hr_cropped.device
+        with span("predict.core"):
+            B = hr_cropped.shape[0]
+            device = hr_cropped.device
 
-        def const(v):
-            return torch.as_tensor(v, dtype=torch.float32, device=device)
+            def const(v):
+                return torch.as_tensor(v, dtype=torch.float32, device=device)
 
-        cropped = batch_crop_affine(
-            (proxy_size, proxy_size), joints2D=joints2D, rgb=hr_cropped,
-            bbox_centres=const([in_h * 0.5, in_w * 0.5]).expand(B, 2),
-            bbox_heights=torch.full((B,), float(in_h), device=device),
-            bbox_widths=torch.full((B,), float(in_h), device=device),
-            orig_scale_factor=1.0)
-        proxy = build_proxy_representation(cropped["rgb"], cropped["joints2D"],
-                                           confs, edge_detect_model,
-                                           pose_shape_cfg,
-                                           joints2Dvisib_threshold)
-        pred = pose_shape_model(proxy)
-        if pred["glob"].shape[-1] == 3:
-            glob_rotmats = batch_rodrigues(pred["glob"])
-        else:
-            glob_rotmats = rot6d_to_rotmat(pred["glob"])
+            cropped = batch_crop_affine(
+                (proxy_size, proxy_size), joints2D=joints2D, rgb=hr_cropped,
+                bbox_centres=const([in_h * 0.5, in_w * 0.5]).expand(B, 2),
+                bbox_heights=torch.full((B,), float(in_h), device=device),
+                bbox_widths=torch.full((B,), float(in_h), device=device),
+                orig_scale_factor=1.0)
+            proxy = build_proxy_representation(cropped["rgb"], cropped["joints2D"],
+                                               confs, edge_detect_model,
+                                               pose_shape_cfg,
+                                               joints2Dvisib_threshold)
+            pred = pose_shape_model(proxy)
+            if pred["glob"].shape[-1] == 3:
+                glob_rotmats = batch_rodrigues(pred["glob"])
+            else:
+                glob_rotmats = rot6d_to_rotmat(pred["glob"])
 
-        smpl_mode = smpl_model(body_pose=pred["pose_rotmats_mode"],
-                               global_orient=glob_rotmats[:, None],
-                               betas=pred["shape_mean"], pose2rot=False)
-        verts_mode = aa_rotate_translate_points(smpl_mode["vertices"], X_AXIS,
-                                                np.pi, ZERO_T)
-        per_vertex_3Dvar, verts_samples, joints_samples = \
-            compute_vertex_uncertainties_by_sampling(
-                pred["pose_params_U"], pred["pose_params_S"],
-                pred["pose_params_V"], pred["shape_mean"], glob_rotmats,
-                num_uncertainty_samples, smpl_model, generator=generator,
-                eps=eps, w=w, mesh=mesh)
+            smpl_mode = smpl_model(body_pose=pred["pose_rotmats_mode"],
+                                   global_orient=glob_rotmats[:, None],
+                                   betas=pred["shape_mean"], pose2rot=False)
+            verts_mode = aa_rotate_translate_points(smpl_mode["vertices"], X_AXIS,
+                                                    np.pi, ZERO_T)
+            per_vertex_3Dvar, verts_samples, joints_samples = \
+                compute_vertex_uncertainties_by_sampling(
+                    pred["pose_params_U"], pred["pose_params_S"],
+                    pred["pose_params_V"], pred["shape_mean"], glob_rotmats,
+                    num_uncertainty_samples, smpl_model, generator=generator,
+                    eps=eps, w=w, mesh=mesh)
 
-        cam_wp = pred["cam"]
-        pred_scale = cam_wp[:, 0:1].expand(B, 2)
-        pred_cam_t = torch.cat([cam_wp[:, 1:],
-                                torch.full((B, 1), 2.5, device=device)], dim=-1)
-        out = {
-            "proxy": proxy,
-            "cropped_joints2D": cropped["joints2D"],
-            "pose_rotmats_mode": pred["pose_rotmats_mode"],
-            "shape_mean": pred["shape_mean"],
-            "cam": cam_wp,
-            "pred_cam_t": pred_cam_t,
-            "pred_scale": pred_scale,
-            "per_vertex_3Dvar": per_vertex_3Dvar,
-            "verts_samples": verts_samples,
-            "joints_samples": joints_samples,
-            "verts_mode": verts_mode,
-        }
-        if not render_vis:
+            cam_wp = pred["cam"]
+            pred_scale = cam_wp[:, 0:1].expand(B, 2)
+            pred_cam_t = torch.cat([cam_wp[:, 1:],
+                                    torch.full((B, 1), 2.5, device=device)], dim=-1)
+            out = {
+                "proxy": proxy,
+                "cropped_joints2D": cropped["joints2D"],
+                "pose_rotmats_mode": pred["pose_rotmats_mode"],
+                "shape_mean": pred["shape_mean"],
+                "cam": cam_wp,
+                "pred_cam_t": pred_cam_t,
+                "pred_scale": pred_scale,
+                "per_vertex_3Dvar": per_vertex_3Dvar,
+                "verts_samples": verts_samples,
+                "joints_samples": joints_samples,
+                "verts_mode": verts_mode,
+            }
+            if not render_vis:
+                return out
+
+            wh = body_vis_renderer.img_wh
+            reposed = smpl_model(betas=pred["shape_mean"])
+            reposed_verts = aa_rotate_translate_points(reposed["vertices"], X_AXIS,
+                                                       np.pi, ZERO_T)
+            views = six_views(verts_mode, reposed_verts,
+                              jet_colormap(per_vertex_3Dvar), pred_cam_t, pred_scale)
+            vis = body_vis_renderer(**views)
+            rgb_views = vis["rgb_images"].reshape(B, 6, wh, wh, 3)
+            iuv_views = vis["iuv_images"].reshape(B, 6, wh, wh, 3)
+
+            # Composite the front view over the cropped input.
+            scale_aff = const([[wh / proxy_size, 0.0, 0.0],
+                               [0.0, wh / proxy_size, 0.0]]).expand(B, 2, 3)
+            cropped_vis = affine_resample(cropped["rgb"], scale_aff, (wh, wh))
+            front = batch_add_rgb_background(
+                cropped_vis, rgb_views[:, 0].permute(0, 3, 1, 2),
+                torch.round(iuv_views[:, 0, :, :, 0]))
+            out.update({
+                "rgb_views": rgb_views,
+                "iuv_views": iuv_views,
+                "front": front,
+                "cropped_vis": cropped_vis,
+                "verts_rot90": views["vertices"].reshape(B, 6, -1, 3)[:, 1],
+            })
             return out
-
-        wh = body_vis_renderer.img_wh
-        reposed = smpl_model(betas=pred["shape_mean"])
-        reposed_verts = aa_rotate_translate_points(reposed["vertices"], X_AXIS,
-                                                   np.pi, ZERO_T)
-        views = six_views(verts_mode, reposed_verts,
-                          jet_colormap(per_vertex_3Dvar), pred_cam_t, pred_scale)
-        vis = body_vis_renderer(**views)
-        rgb_views = vis["rgb_images"].reshape(B, 6, wh, wh, 3)
-        iuv_views = vis["iuv_images"].reshape(B, 6, wh, wh, 3)
-
-        # Composite the front view over the cropped input.
-        scale_aff = const([[wh / proxy_size, 0.0, 0.0],
-                           [0.0, wh / proxy_size, 0.0]]).expand(B, 2, 3)
-        cropped_vis = affine_resample(cropped["rgb"], scale_aff, (wh, wh))
-        front = batch_add_rgb_background(
-            cropped_vis, rgb_views[:, 0].permute(0, 3, 1, 2),
-            torch.round(iuv_views[:, 0, :, :, 0]))
-        out.update({
-            "rgb_views": rgb_views,
-            "iuv_views": iuv_views,
-            "front": front,
-            "cropped_vis": cropped_vis,
-            "verts_rot90": views["vertices"].reshape(B, 6, -1, 3)[:, 1],
-        })
-        return out
 
     return core
 
@@ -583,6 +585,7 @@ class _Fetch:
 
     def numpy(self):
         if self.event is not None:
+            count("host_syncs")
             self.event.synchronize()
         return {k: v.numpy() for k, v in self.host.items()}
 

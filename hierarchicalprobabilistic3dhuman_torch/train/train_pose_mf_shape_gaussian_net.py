@@ -59,6 +59,7 @@ from hierarchicalprobabilistic3dhuman_torch.parallel.sharded_train import (
 from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
     checkpoint_path, load_training_info_from_checkpoint,
     save_training_checkpoint, state_dict_on_cpu)
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import count, span
 from hierarchicalprobabilistic3dhuman_torch.utils.augmentation.cam_augmentation import (
     augment_cam_t)
 from hierarchicalprobabilistic3dhuman_torch.utils.augmentation.lighting_augmentation import (
@@ -239,130 +240,136 @@ class TrainStep:
     def forward_loss(self, draws, proxy, targets):
         """:return: loss, metric data (the mode's outputs and, in stage 2,
         the samples' 2D joints), the unweighted loss terms"""
-        B = proxy.shape[0]
-        N = self.num_samples
-        smpl = self.smpl_model
-        mesh = self.mesh
-        mode_here = mesh is None or mesh.sample_index == 0
-        pred = (self.model if self.ddp is None else self.ddp)(proxy)
+        with span("forward"):
+            B = proxy.shape[0]
+            N = self.num_samples
+            smpl = self.smpl_model
+            mesh = self.mesh
+            mode_here = mesh is None or mesh.sample_index == 0
+            pred = (self.model if self.ddp is None else self.ddp)(proxy)
 
-        pred_glob_rotmats = rot6d_to_rotmat(pred["glob"])
-        mode = smpl(body_pose=pred["pose_rotmats_mode"],
-                    global_orient=pred_glob_rotmats[:, None],
-                    betas=pred["shape_mean"], pose2rot=False)
-        joints_all = mode["joints"]
-        joints_h36mlsp = joints_all[:, H36M_J14]
-        joints_coco = aa_rotate_translate_points(
-            joints_all[:, ALL_JOINTS_TO_COCO_MAP], X_AXIS, np.pi, ZERO_T)
-        j2d_mode = orthographic_project(joints_coco, pred["cam"])   # [-1, 1]
+            pred_glob_rotmats = rot6d_to_rotmat(pred["glob"])
+            mode = smpl(body_pose=pred["pose_rotmats_mode"],
+                        global_orient=pred_glob_rotmats[:, None],
+                        betas=pred["shape_mean"], pose2rot=False)
+            joints_all = mode["joints"]
+            joints_h36mlsp = joints_all[:, H36M_J14]
+            joints_coco = aa_rotate_translate_points(
+                joints_all[:, ALL_JOINTS_TO_COCO_MAP], X_AXIS, np.pi, ZERO_T)
+            j2d_mode = orthographic_project(joints_coco, pred["cam"])   # [-1, 1]
 
-        j2d_samples = None
-        j2d_mode_sets = j2d_mode[:, None] if mode_here else j2d_mode[:, None][:, :0]
-        if "samples" in self.j2d_loss_on:
-            draws_pose, draws_shape = draws.split(2)
-            draws_eps, draws_w = draws_pose.split(2)
-            J, lanes = pred["pose_params_U"].shape[1], N * OVERSAMPLING
-            shape_mean = pred["shape_mean"]
-            # The global batch's draws, in the 1-rank order; this rank's rows.
-            B_all = B if mesh is None else B * mesh.shape["data"]
-            eps = draws_eps.normal((B_all, J, lanes, 4))
-            w = draws_w.uniform((B_all, J, lanes))
-            shape_eps = draws_shape.normal((B_all, N, shape_mean.shape[1]))
-            if mesh is not None:
-                eps, w, shape_eps = (mesh.take_rows(t) for t in (eps, w, shape_eps))
-            pose_samples = pose_matrix_fisher_sampling(
-                pred["pose_params_U"], pred["pose_params_S"],
-                pred["pose_params_V"], N, b=1.5,
-                oversampling_ratio=OVERSAMPLING, eps=eps, w=w)
-            if mesh is not None:    # this rank's samples, after the sampler
-                own = mesh.samples(N)
-                pose_samples, shape_eps = pose_samples[:, own], shape_eps[:, own]
-            n = pose_samples.shape[1]
-            shape_samples = shape_gaussian_sampling(
-                shape_mean, torch.exp(pred["shape_log_std"]), n, eps=shape_eps)
-            flat = smpl(body_pose=pose_samples.reshape(B * n, J, 3, 3),
-                        global_orient=pred_glob_rotmats[:, None, None]
-                        .expand(B, n, 1, 3, 3).reshape(B * n, 1, 3, 3),
-                        betas=shape_samples.reshape(B * n, -1),
-                        pose2rot=False)["joints"][:, ALL_JOINTS_TO_COCO_MAP]
-            flat = aa_rotate_translate_points(flat, X_AXIS, np.pi, ZERO_T)
-            cam_rep = pred["cam"].repeat_interleave(n, dim=0)
-            j2d_samples = orthographic_project(flat, cam_rep).reshape(B, n, -1, 2)
-            if self.j2d_loss_on == "means+samples":
-                j2d_for_loss = torch.cat([j2d_mode_sets, j2d_samples], dim=1)
-                j2d_sets = N + 1
+            j2d_samples = None
+            j2d_mode_sets = j2d_mode[:, None] if mode_here else j2d_mode[:, None][:, :0]
+            if "samples" in self.j2d_loss_on:
+                draws_pose, draws_shape = draws.split(2)
+                draws_eps, draws_w = draws_pose.split(2)
+                J, lanes = pred["pose_params_U"].shape[1], N * OVERSAMPLING
+                shape_mean = pred["shape_mean"]
+                # The global batch's draws, in the 1-rank order; this rank's rows.
+                B_all = B if mesh is None else B * mesh.shape["data"]
+                eps = draws_eps.normal((B_all, J, lanes, 4))
+                w = draws_w.uniform((B_all, J, lanes))
+                shape_eps = draws_shape.normal((B_all, N, shape_mean.shape[1]))
+                if mesh is not None:
+                    eps, w, shape_eps = (mesh.take_rows(t) for t in (eps, w, shape_eps))
+                pose_samples = pose_matrix_fisher_sampling(
+                    pred["pose_params_U"], pred["pose_params_S"],
+                    pred["pose_params_V"], N, b=1.5,
+                    oversampling_ratio=OVERSAMPLING, eps=eps, w=w)
+                if mesh is not None:    # this rank's samples, after the sampler
+                    own = mesh.samples(N)
+                    pose_samples, shape_eps = pose_samples[:, own], shape_eps[:, own]
+                n = pose_samples.shape[1]
+                shape_samples = shape_gaussian_sampling(
+                    shape_mean, torch.exp(pred["shape_log_std"]), n, eps=shape_eps)
+                flat = smpl(body_pose=pose_samples.reshape(B * n, J, 3, 3),
+                            global_orient=pred_glob_rotmats[:, None, None]
+                            .expand(B, n, 1, 3, 3).reshape(B * n, 1, 3, 3),
+                            betas=shape_samples.reshape(B * n, -1),
+                            pose2rot=False)["joints"][:, ALL_JOINTS_TO_COCO_MAP]
+                flat = aa_rotate_translate_points(flat, X_AXIS, np.pi, ZERO_T)
+                cam_rep = pred["cam"].repeat_interleave(n, dim=0)
+                j2d_samples = orthographic_project(flat, cam_rep).reshape(B, n, -1, 2)
+                if self.j2d_loss_on == "means+samples":
+                    j2d_for_loss = torch.cat([j2d_mode_sets, j2d_samples], dim=1)
+                    j2d_sets = N + 1
+                else:
+                    j2d_for_loss = j2d_samples
+                    j2d_sets = N
             else:
-                j2d_for_loss = j2d_samples
-                j2d_sets = N
-        else:
-            j2d_for_loss = j2d_mode_sets
-            j2d_sets = 1
+                j2d_for_loss = j2d_mode_sets
+                j2d_sets = 1
 
-        pred_dict = {
-            "pose_params_F": pred["pose_params_F"],
-            "pose_params_U": pred["pose_params_U"],
-            "pose_params_S": pred["pose_params_S"],
-            "pose_params_V": pred["pose_params_V"],
-            "shape_mean": pred["shape_mean"],
-            "shape_log_std": pred["shape_log_std"],
-            "verts": mode["vertices"],
-            "joints3D": joints_h36mlsp,
-            "joints2D": j2d_for_loss,
-            "glob_rotmats": pred_glob_rotmats,
-        }
-        loss, terms = self.criterion(targets, pred_dict, mesh=mesh,
-                                     j2d_sets=j2d_sets)
-        metric_data = {
-            "verts": mode["vertices"],
-            "joints3D": joints_h36mlsp,
-            "joints2D": j2d_mode,
-            "glob_rotmats": pred_glob_rotmats,
-            "shape_mean": pred["shape_mean"],
-        }
-        if j2d_samples is not None:
-            metric_data["joints2Dsamples"] = j2d_samples
-        return loss, metric_data, terms
+            pred_dict = {
+                "pose_params_F": pred["pose_params_F"],
+                "pose_params_U": pred["pose_params_U"],
+                "pose_params_S": pred["pose_params_S"],
+                "pose_params_V": pred["pose_params_V"],
+                "shape_mean": pred["shape_mean"],
+                "shape_log_std": pred["shape_log_std"],
+                "verts": mode["vertices"],
+                "joints3D": joints_h36mlsp,
+                "joints2D": j2d_for_loss,
+                "glob_rotmats": pred_glob_rotmats,
+            }
+            loss, terms = self.criterion(targets, pred_dict, mesh=mesh,
+                                         j2d_sets=j2d_sets)
+            metric_data = {
+                "verts": mode["vertices"],
+                "joints3D": joints_h36mlsp,
+                "joints2D": j2d_mode,
+                "glob_rotmats": pred_glob_rotmats,
+                "shape_mean": pred["shape_mean"],
+            }
+            if j2d_samples is not None:
+                metric_data["joints2Dsamples"] = j2d_samples
+            return loss, metric_data, terms
 
     def __call__(self, draws, pose, background, texture):
-        draws_synth, draws_fwd = draws.split(2)
-        mesh = self.mesh
-        # The synthetic batch carries no parameter dependence.
-        with torch.no_grad():
-            proxy, targets = self.synth(draws_synth, pose, background, texture)
-            if mesh is not None:
-                proxy, targets = mesh.take_rows(proxy), mesh.take_rows(targets)
-        if self.train:
-            self.model.train()
-            self.optimizer.zero_grad(set_to_none=True)
-            loss, metric_data, terms = self.forward_loss(draws_fwd, proxy, targets)
-            # DDP averages the ranks' gradients; the shares' gradients sum
-            # to the global one.
-            (loss if self.ddp is None else loss * mesh.size).backward()
-            self.optimizer.step()
-        else:
-            self.model.eval()
+        with span("train.step"):
+            draws_synth, draws_fwd = draws.split(2)
+            mesh = self.mesh
+            # The synthetic batch carries no parameter dependence.
             with torch.no_grad():
-                loss, metric_data, terms = self.forward_loss(draws_fwd, proxy,
-                                                             targets)
-        with torch.no_grad():
-            metric_data = {k: v.detach() for k, v in metric_data.items()}
-            terms = {k: v.detach() for k, v in terms.items()}
-            # Reposed mean vertices for the PVE-T metrics.
-            reposed_mean = self.smpl_model(
-                betas=metric_data["shape_mean"])["vertices"]
-            metric_data["reposed_verts"] = reposed_mean
-            loss = loss.detach()
-            if mesh is not None:
-                names = list(terms)
-                total = mesh.all_reduce(torch.stack([loss] + [terms[k] for k in names]))
-                loss, terms = total[0], dict(zip(names, total[1:]))
-            if self.metric_sums is not None:
-                sums = self.metric_sums(metric_data, targets, reposed_mean,
-                                        targets["reposed_verts"])
+                with span("synth"):
+                    proxy, targets = self.synth(draws_synth, pose, background,
+                                                texture)
                 if mesh is not None:
-                    sums = all_reduce_sums(mesh, sums)
-                return loss, sums, terms
-        return loss, metric_data, targets, terms
+                    proxy, targets = mesh.take_rows(proxy), mesh.take_rows(targets)
+            if self.train:
+                self.model.train()
+                self.optimizer.zero_grad(set_to_none=True)
+                loss, metric_data, terms = self.forward_loss(draws_fwd, proxy, targets)
+                # DDP averages the ranks' gradients; the shares' gradients sum
+                # to the global one.
+                with span("backward"):
+                    (loss if self.ddp is None else loss * mesh.size).backward()
+                with span("optimizer"):
+                    self.optimizer.step()
+            else:
+                self.model.eval()
+                with torch.no_grad():
+                    loss, metric_data, terms = self.forward_loss(draws_fwd, proxy,
+                                                                 targets)
+            with torch.no_grad():
+                metric_data = {k: v.detach() for k, v in metric_data.items()}
+                terms = {k: v.detach() for k, v in terms.items()}
+                # Reposed mean vertices for the PVE-T metrics.
+                reposed_mean = self.smpl_model(
+                    betas=metric_data["shape_mean"])["vertices"]
+                metric_data["reposed_verts"] = reposed_mean
+                loss = loss.detach()
+                if mesh is not None:
+                    names = list(terms)
+                    total = mesh.all_reduce(torch.stack([loss] + [terms[k] for k in names]))
+                    loss, terms = total[0], dict(zip(names, total[1:]))
+                if self.metric_sums is not None:
+                    sums = self.metric_sums(metric_data, targets, reposed_mean,
+                                            targets["reposed_verts"])
+                    if mesh is not None:
+                        sums = all_reduce_sums(mesh, sums)
+                    return loss, sums, terms
+            return loss, metric_data, targets, terms
 
 
 def batch_to_device(batch, device):
@@ -478,6 +485,7 @@ def train_pose_mf_shape_gaussian_net(pose_shape_model,
 
             def resolve(p):
                 p_split, p_loss, p_sums, p_bs = p
+                count("host_syncs", 1 + len(p_sums))
                 tracker.update_per_batch_sums(
                     split=p_split, loss=float(p_loss), batch_size=p_bs,
                     metric_sums={k: float(v) for k, v in p_sums.items()})

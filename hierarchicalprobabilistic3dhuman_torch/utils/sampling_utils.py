@@ -16,6 +16,7 @@ import torch
 
 from hierarchicalprobabilistic3dhuman_torch.ops.bingham_sampling import (
     pose_matrix_fisher_sampling)
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import span
 from hierarchicalprobabilistic3dhuman_torch.utils.cam_utils import (
     orthographic_project)
 from hierarchicalprobabilistic3dhuman_torch.utils.joints2d_utils import (
@@ -44,33 +45,34 @@ def compute_vertex_uncertainties_by_sampling(pose_U, pose_S, pose_V,
     :return: avg_distance (B, 6890), vertices_samples (B, N, 6890, 3),
              joints_samples (B, N, 90, 3)
     """
-    B = pose_U.shape[0]
-    pose_samples = pose_matrix_fisher_sampling(
-        pose_U, pose_S, pose_V, num_samples, b=b,
-        oversampling_ratio=oversampling_ratio, generator=generator,
-        eps=eps, w=w)
-    if mesh is not None:
-        pose_samples = pose_samples[:, mesh.samples(num_samples)]
-    n = pose_samples.shape[1]
-    flat_shape = shape_mean[:, None].expand(B, n, shape_mean.shape[-1])
-    flat_glob = glob_rotmats[:, None].expand(B, n, 3, 3)
-    out = smpl(body_pose=pose_samples.reshape(B * n, 23, 3, 3),
-               global_orient=flat_glob.reshape(B * n, 1, 3, 3),
-               betas=flat_shape.reshape(B * n, -1), pose2rot=False)
-    verts = out["vertices"].reshape(B, n, -1, 3)
-    joints = out["joints"].reshape(B, n, -1, 3)
-    if mesh is None:
-        mean_verts = verts.mean(dim=1, keepdim=True)
-        avg_distance = torch.linalg.vector_norm(verts - mean_verts,
-                                                dim=-1).mean(dim=1)
-        return avg_distance, verts, joints
-    mean_verts = mesh.all_reduce(verts.sum(dim=1, keepdim=True), "sample") / num_samples
-    avg_distance = mesh.all_reduce(
-        torch.linalg.vector_norm(verts - mean_verts, dim=-1).sum(dim=1),
-        "sample") / num_samples
-    sizes = mesh.sample_sizes(num_samples)
-    return (avg_distance, mesh.all_gather(verts, "sample", dim=1, sizes=sizes),
-            mesh.all_gather(joints, "sample", dim=1, sizes=sizes))
+    with span("samples"):
+        B = pose_U.shape[0]
+        pose_samples = pose_matrix_fisher_sampling(
+            pose_U, pose_S, pose_V, num_samples, b=b,
+            oversampling_ratio=oversampling_ratio, generator=generator,
+            eps=eps, w=w)
+        if mesh is not None:
+            pose_samples = pose_samples[:, mesh.samples(num_samples)]
+        n = pose_samples.shape[1]
+        flat_shape = shape_mean[:, None].expand(B, n, shape_mean.shape[-1])
+        flat_glob = glob_rotmats[:, None].expand(B, n, 3, 3)
+        out = smpl(body_pose=pose_samples.reshape(B * n, 23, 3, 3),
+                   global_orient=flat_glob.reshape(B * n, 1, 3, 3),
+                   betas=flat_shape.reshape(B * n, -1), pose2rot=False)
+        verts = out["vertices"].reshape(B, n, -1, 3)
+        joints = out["joints"].reshape(B, n, -1, 3)
+        if mesh is None:
+            mean_verts = verts.mean(dim=1, keepdim=True)
+            avg_distance = torch.linalg.vector_norm(verts - mean_verts,
+                                                    dim=-1).mean(dim=1)
+            return avg_distance, verts, joints
+        mean_verts = mesh.all_reduce(verts.sum(dim=1, keepdim=True), "sample") / num_samples
+        avg_distance = mesh.all_reduce(
+            torch.linalg.vector_norm(verts - mean_verts, dim=-1).sum(dim=1),
+            "sample") / num_samples
+        sizes = mesh.sample_sizes(num_samples)
+        return (avg_distance, mesh.all_gather(verts, "sample", dim=1, sizes=sizes),
+                mesh.all_gather(joints, "sample", dim=1, sizes=sizes))
 
 
 def joints2D_error_sorted_verts_sampling(pred_vertices_samples,
