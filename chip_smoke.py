@@ -59,13 +59,15 @@ Phases (any failure exits non-zero before the final line):
      frames): (a) both kernels against their plain versions on one batch's
      silhouette tables, 8 mode meshes and 80 sample meshes at 256^2, A=3;
      (b) `run_evaluate_torch.py --dataset ssp3d` at batch 8 and at batch 1
-     (4 frames), two launches of each kernel a batch, finite metrics and
-     per-frame files in dataset order; (c) the eval step on the card against
-     the CPU (3D metrics within 1e-4 relative, IOUs within 2e-3); (d)
-     `--dataset 3dpw`, no launch; (e) frames/s at batch 1 and 8, one step's
+     (4 frames), two launches of each rasterizer kernel and 8 of svd3_gesdd
+     (one a depth group) a batch, finite metrics and per-frame files in
+     dataset order; (c) the eval step on the card against the CPU (3D
+     metrics within 1e-4 relative, IOUs within 2e-3); (d) `--dataset 3dpw`,
+     no rasterizer launch, 8 of svd3_gesdd a batch; (e) frames/s at batch 1 and 8, one step's
      profile, the predictor with each 3x3 SVD, the kernels at the two eval
-     shapes beside their bounds; (f) the LAPACK-sign SVD on the card
-     against the CPU on 2,000 matrices;
+     shapes beside their bounds; (f) the LAPACK-sign SVD's kernel against
+     its plain version on the card and against the CPU, timed a call at the
+     head's shapes (8 x 2, 8 x 3, 8 x 5 matrices) and at 2,000;
   7. training at full width (ResNet-18 on the 256^2 proxy, EMBED_DIM 256,
      batch 72, 8 samples in stage 2, random weights, synthetic SMPL and the
      synthetic fallback dataset's poses, backgrounds and 1200 x 800 uint8
@@ -647,6 +649,48 @@ def same_bits(a, b):
     return a == b
 
 
+# Hand-made inputs of the LAPACK-sign SVD: zeros (signed too), diagonals with
+# ties and negative entries, rank 1 and 2, the ends of float32's range, and
+# two upper bidiagonal matrices (gebd2 passes them through) whose first QR
+# iterations take the 2x2 dlasv2 paths.
+GESDD_LANES = {
+    "zero": np.zeros((3, 3)),
+    "negative_zero": -np.zeros((3, 3)),
+    "signed_zeros": [[-0.0, 1, 0], [0, -0.0, 2], [0, 0, -0.0]],
+    "diagonal_ties_negative": np.diag([2.0, 2.0, -2.0]),
+    "diagonal_ties_last": np.diag([-1.0, 3.0, 3.0]),
+    "diagonal_signed_zeros": np.diag([0.0, -0.0, 1.0]),
+    "identity": np.eye(3),
+    "minus_identity": -np.eye(3),
+    "permutation": [[0.0, 1, 0], [0, 0, 1], [1, 0, 0]],
+    "rank1": np.outer([1.0, 2, -1], [0.5, -1, 2]),
+    "rank1_corner": np.outer([1.0, 0, 0], [0, 0, 1]),
+    "rank2": [[1.0, 2, 3], [4, 5, 6], [7, 8, 9]],
+    "rank2_rows": [[1.0, 2, 3], [2, 4, 6], [1, 0, 1]],
+    "tiny": np.diag([1e-38, 1e-39, 1e-40]),
+    "huge": [[3e38, 1e38, 0], [0, 2e38, 0], [0, 0, 1]],
+    # e0 = 0 < |e1|: the first iteration splits the top off and solves the
+    # (1, 2) block with dlasv2; m goes 3 -> 1 in one iteration.
+    "split_top": [[2.0, 0, 0], [0, 3, 1], [0, 0, 1]],
+    # e1 = 0 < |e0|: the bottom deflates, then the m == 2 block (0, 1) is
+    # solved with dlasv2; m goes 3 -> 2 -> 0 in two iterations.
+    "two_by_two": [[3.0, 1, 0], [0, 2, 0], [0, 0, 1]],
+}
+
+
+def gesdd_lanes():
+    """GESDD_LANES as (names, (N, 3, 3) float32 array)."""
+    return list(GESDD_LANES), np.stack([np.asarray(m, np.float32)
+                                        for m in GESDD_LANES.values()])
+
+
+def gesdd_f_plus_i(scale=1.0, n=2000, seed=5):
+    """n matrices of the pose head's regime, randn * 0.5 + I, times scale:
+    (n, 3, 3) float32."""
+    rng = np.random.RandomState(seed)
+    return ((rng.randn(n, 3, 3) * 0.5 + np.eye(3)) * scale).astype(np.float32)
+
+
 def tables_differ(tag, name, scene):
     """The pack_faces kernel's four tables against its plain version's (the
     torch ops on the card) on a scene's inputs: tolerance 0, bit for bit (a
@@ -741,26 +785,44 @@ def phase_kernel_vs_plain(device):
     return scenes, worst, worst_table
 
 
-def run_path(tag, what, fn, expect):
-    """Drive one path with both kernels' launch counts set to 0 just before
-    it and read just after; each count must equal `expect`.
+def kernel_launches(reset=False):
+    """The three kernels' launch counts, each set to 0 first if `reset`.
+
+    :return: {"rasterize", "pack_face_tables", "svd3_gesdd": count}
+    """
+    from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import (
+        svd3x3_gesdd_cuda)
+    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
+        pack_face_tables_cuda, rasterize_packed_cuda)
+    counters = {"rasterize": rasterize_packed_cuda,
+                "pack_face_tables": pack_face_tables_cuda,
+                "svd3_gesdd": svd3x3_gesdd_cuda}
+    if reset:
+        for fn in counters.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def run_path(tag, what, fn, expect, gesdd=0):
+    """Drive one path with the kernels' launch counts set to 0 just before
+    it and read just after: the rasterizer's two must each equal `expect`,
+    svd3_gesdd's `gesdd` (HEAD_SVD_CALLS a predictor call with the
+    LAPACK-sign head, 0 with the Jacobi one).
 
     :return: fn's result, the counts
     """
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        pack_face_tables_cuda, rasterize_packed_cuda)
-    rasterize_packed_cuda.launches = pack_face_tables_cuda.launches = 0
+    kernel_launches(reset=True)
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rasterize": rasterize_packed_cuda.launches,
-                "pack_face_tables": pack_face_tables_cuda.launches}
+    launches = kernel_launches()
+    want = {"rasterize": expect, "pack_face_tables": expect, "svd3_gesdd": gesdd}
     log(f"[{tag}] {what}: {wall:.2f} s; kernel launches {launches}, "
-        f"expected {expect} of each")
-    if set(launches.values()) != {expect}:
-        raise AssertionError(f"{what}: expected {expect} launches of each "
-                             f"kernel, got {launches}")
+        f"expected {want}")
+    if launches != want:
+        raise AssertionError(f"{what}: expected kernel launches {want}, got "
+                             f"{launches}")
     return result, launches
 
 
@@ -1661,6 +1723,7 @@ def phase_batched(workdir):
 # Phase 6: the evaluation's batch, its sample count (the CLI's default), and
 # the demo photos of 512^2 that make the synthetic datasets' frames.
 EVAL_BATCH = 8
+HEAD_SVD_CALLS = 8      # the pose head's depth groups, one 3x3 SVD call each
 EVAL_SAMPLES = 10
 # The proxy and render size of the eval step's card-vs-CPU check.
 CARD_VS_CPU_WH = 32
@@ -1794,8 +1857,9 @@ def phase_eval(workdir, device):
     """The evaluation entry point on the card: (a) both kernels against
     their plain versions on one SSP-3D batch's silhouette tables; (b)
     run_evaluate_torch.py on a synthetic SSP-3D folder at batch 8 and 1,
-    two launches of each kernel a batch; (c) the eval step on the card
-    against the CPU; (d) 3DPW, no launch; (e) timings; (f) the LAPACK-sign
+    two launches of each rasterizer kernel and HEAD_SVD_CALLS of svd3_gesdd
+    a batch; (c) the eval step on the card against the CPU; (d) 3DPW, no
+    rasterizer launch; (e) timings; (f) the LAPACK-sign
     SVD on the card against the CPU.
 
     :return: dict of the readings for the kernels line
@@ -1828,6 +1892,10 @@ def phase_eval(workdir, device):
     card = evaluator("ssp3d", ssp3d, EVAL_BATCH)
     if card["pose_shape_model"].svd_impl != "lapack":
         raise AssertionError("--svd_impl auto did not take lapack for a .tar")
+    if len(card["pose_shape_model"].depth_groups) != HEAD_SVD_CALLS:
+        raise AssertionError(f"the pose head has "
+                             f"{len(card['pose_shape_model'].depth_groups)} "
+                             f"depth groups, not {HEAD_SVD_CALLS}")
     batch_args = eval_batch(card)
     wh = card["pose_shape_cfg"].DATA.PROXY_REP_SIZE
     silhouettes = silhouette_renderer(device, wh)
@@ -1855,7 +1923,8 @@ def phase_eval(workdir, device):
             f"{batch} on {frames} frames",
             lambda: main(eval_argv("ssp3d", root, weights, save, batch,
                                    str(device))),
-            expect=2 * frames // batch)
+            expect=2 * frames // batch,
+            gesdd=HEAD_SVD_CALLS * frames // batch)
         check_eval_outputs("phase 6b", metrics, SSP3D_METRICS, save, frames)
         readings["launches"][f"eval_ssp3d_{frames}_frames_b{batch}"] = launches
     lap("phase 6b")
@@ -1899,13 +1968,14 @@ def phase_eval(workdir, device):
     del small, outs
     lap("phase 6c")
 
-    # (d) 3DPW: no silhouette metric, no rasterizer launch.
+    # (d) 3DPW: no silhouette metric, no rasterizer launch; the head's SVD.
     save = os.path.join(workdir, "eval_3dpw")
     metrics, launches = run_path(
         "phase 6d", f"run_evaluate_torch.py --dataset 3dpw --batch_size "
         f"{EVAL_BATCH} on {len(photos)} frames",
         lambda: main(eval_argv("3dpw", pw3d, weights, save, EVAL_BATCH,
-                               str(device))), expect=0)
+                               str(device))), expect=0,
+        gesdd=HEAD_SVD_CALLS * len(photos) // EVAL_BATCH)
     pw3d_metrics = ['PVE', 'PVE-SC', 'PVE-PA', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC',
                     'MPJPE-PA', 'joints2D-L2E']
     pw3d_metrics += [m + "_samples_min" for m in pw3d_metrics if m != "joints2D-L2E"]
@@ -1927,13 +1997,14 @@ def phase_eval(workdir, device):
     step_args = batch_args(device)
     svd3x3_gesdd.iterations = 0
     step(*step_args)
+    torch.cuda.synchronize()            # the kernel's count is in stream order
     step_iterations = svd3x3_gesdd.iterations
     step_ms = median_ms(lambda: step(*step_args), repeats=2)
     p = device_profile(lambda: step(*step_args))
     log(f"[phase 6e] one eval step, batch {EVAL_BATCH}: {step_ms:.2f} ms; "
         f"profiled: wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} "
         f"ms ({p['device_ms'] / p['wall_ms']:.1%}), {p['launches']} device "
-        f"launches, {step_iterations} bidiagonal QR iterations (host syncs)")
+        f"launches, {step_iterations} bidiagonal QR iterations")
     for e in sorted(p["rows"], key=lambda e: -e.self_device_time_total)[:5]:
         log(f"[phase 6e]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
@@ -1948,6 +2019,7 @@ def phase_eval(workdir, device):
             model.svd_impl = impl
             svd3x3_gesdd.iterations = 0
             model(proxy)
+            torch.cuda.synchronize()
             iterations = svd3x3_gesdd.iterations
             ms = median_ms(lambda: model(proxy), repeats=2)
             log(f"[phase 6e] predictor, batch {EVAL_BATCH}, svd_impl {impl}: "
@@ -1962,22 +2034,81 @@ def phase_eval(workdir, device):
         for name, (scene, _) in scenes.items()}
     lap("phase 6e")
 
-    # (f) the LAPACK-sign SVD on the card against the port on the CPU.
-    F = torch.as_tensor(np.random.RandomState(5).randn(2000, 3, 3) * 0.5
-                        + np.eye(3), dtype=torch.float32)
+    # (f) the LAPACK-sign SVD: the kernel against its plain version and the
+    # CPU, and its timings.
+    readings["gesdd"] = phase_gesdd(device)
+    lap("phase 6f")
+    return readings
+
+
+# The pose head's SVD calls at batch 8 (the depth groups hold 2, 3 or 5
+# joints) and a large call.
+GESDD_SHAPES = {"head_8x2": (8, 2), "head_8x3": (8, 3), "head_8x5": (8, 5),
+                "lanes_2000": (2000,)}
+
+
+def phase_gesdd(device):
+    """Phase 6f, the LAPACK-sign SVD on the card: the svd3_gesdd kernel's
+    build report; svd3x3_gesdd (the kernel) on 2,000 F + I matrices against
+    the port on the CPU, bit for bit; at each of GESDD_SHAPES the kernel
+    against its plain version on the card (U, S, V bit for bit, the same
+    count of loop iterations) and timed: the wrapper's calls, median of 5 x
+    20 in a row, the card's own time (graph_ms), and the plain version,
+    median of 3; the bound is the bytes (9 floats in, 21 out a matrix) at
+    3.35 TB/s, which the serial chain of one matrix's loop dwarfs.
+
+    :return: readings: ms, device_ms, plain_ms, bound_ms, bound_by and
+             iterations at the head's largest shape (head_8x5), max_abs_err
+             (kernel against plain, over every shape), and under "shapes"
+             those of each shape
+    """
+    from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import (
+        LOG_PATH, build_svd3_gesdd, svd3x3_gesdd, svd3x3_gesdd_cuda,
+        svd3x3_gesdd_plain)
+    t0 = time.perf_counter()
+    build_svd3_gesdd()
+    log(f"[phase 6f] svd3_gesdd built in {time.perf_counter() - t0:.1f} s")
+    with open(LOG_PATH) as f:
+        for line in f:
+            if "registers" in line or "spill" in line:
+                log(f"[phase 6f] svd3_gesdd: {line.strip()}")
+    F = torch.from_numpy(gesdd_f_plus_i())
     card_usv = [a.cpu() for a in svd3x3_gesdd(F.to(device))]
     cpu_usv = svd3x3_gesdd(F)
-    same = ((card_usv[0] - cpu_usv[0]).abs().amax((1, 2)) <= 1e-5) & (
-        (card_usv[2] - cpu_usv[2]).abs().amax((1, 2)) <= 1e-5)
-    s_err = float((card_usv[1] - cpu_usv[1]).abs().max())
     bitwise = all(torch.equal(a, b) for a, b in zip(card_usv, cpu_usv))
-    log(f"[phase 6f] svd3x3_gesdd on 2000 F + I matrices, card vs CPU: equal "
-        f"signs (U, V within 1e-5) on {float(same.float().mean()):.4f} (tol "
-        f"0.99); S max abs diff {s_err:.2e}; U, S, V bit-equal {bitwise}")
-    if float(same.float().mean()) < 0.99 or s_err > 1e-5:
+    log(f"[phase 6f] svd3x3_gesdd on 2000 F + I matrices, the kernel vs the "
+        f"CPU: U, S, V bit-equal {bitwise}")
+    if not bitwise:
         raise AssertionError("[phase 6f] svd3x3_gesdd on the card disagrees "
                              "with the CPU")
-    # Why the module takes its square roots in float64: torch's float32
+    shapes, max_abs_err = {}, 0.0
+    for name, shape in GESDD_SHAPES.items():
+        n = int(np.prod(shape))
+        Fd = torch.from_numpy(gesdd_f_plus_i(n=n)).reshape(shape + (3, 3)).to(device)
+        svd3x3_gesdd.iterations = 0
+        kernel = svd3x3_gesdd_cuda(Fd)
+        torch.cuda.synchronize()
+        iterations = svd3x3_gesdd.iterations
+        svd3x3_gesdd.iterations = 0
+        plain = svd3x3_gesdd_plain(Fd)
+        same = all(bool(same_bits(k, p).all()) for k, p in zip(kernel, plain))
+        max_abs_err = max([max_abs_err] + [float((k - p).abs().max())
+                                           for k, p in zip(kernel, plain)])
+        if not same or svd3x3_gesdd.iterations != iterations:
+            raise AssertionError(f"[phase 6f] svd3_gesdd at {name}: the kernel "
+                                 f"and its plain version differ")
+        ms = median_ms(lambda: svd3x3_gesdd_cuda(Fd), inner=20)
+        device_ms = graph_ms(lambda: svd3x3_gesdd_cuda(Fd))
+        plain_ms = median_ms(lambda: svd3x3_gesdd_plain(Fd), repeats=3)
+        bound_ms = n * 30 * 4 / PEAK_BYTES_PER_S * 1e3
+        log(f"[phase 6f] svd3_gesdd {name}, {n} matrices, {iterations} loop "
+            f"iterations: kernel {ms:.4f} ms a call, {device_ms:.4f} ms on the "
+            f"card (graph replay); bound {bound_ms:.6f} ms (bytes); plain "
+            f"version {plain_ms:.3f} ms; U, S, V and the count equal")
+        shapes[name] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes",
+                        "iterations": iterations}
+    # Why both versions take their square roots in float64: torch's float32
     # sqrt on the card against the CPU's, and the float64 route.
     x = torch.as_tensor(np.abs(np.random.RandomState(0).randn(1 << 20)) * 3,
                         dtype=torch.float32)
@@ -1986,9 +2117,7 @@ def phase_eval(workdir, device):
                  != torch.sqrt(x.double()).float()).sum())
     log(f"[phase 6f] float32 sqrt of {x.numel()} values, card vs CPU: "
         f"{off32} differ; through float64: {off64} differ")
-    readings["gesdd_same_share"] = float(same.float().mean())
-    lap("phase 6f")
-    return readings
+    return {**shapes["head_8x5"], "max_abs_err": max_abs_err, "shapes": shapes}
 
 
 def write_ssp3d_folder(root, images, seed=0):
@@ -3206,20 +3335,17 @@ def check_rank_kernels(name, scene):
 
 
 def counted(fn):
-    """fn() with both kernels' launch counts set to 0 just before it and
+    """fn() with the kernels' launch counts set to 0 just before it and
     read just after (None off the card).
 
     :return: fn's result, the counts
     """
-    from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
-        pack_face_tables_cuda, rasterize_packed_cuda)
-    rasterize_packed_cuda.launches = pack_face_tables_cuda.launches = 0
+    kernel_launches(reset=True)
     result = fn()
     if not torch.cuda.is_available():
         return result, None
     torch.cuda.synchronize()
-    return result, {"rasterize": rasterize_packed_cuda.launches,
-                    "pack_face_tables": pack_face_tables_cuda.launches}
+    return result, kernel_launches()
 
 
 class Float64Predictor(torch.nn.Module):
@@ -3821,7 +3947,7 @@ def phase_parallel(workdir, device):
             metrics[name], launches = run_path(
                 "phase 10a", f"run_evaluate_torch.py --dataset ssp3d --batch_size "
                 f"{EVAL_BATCH} ({name})", lambda: eval_cli.run_evaluate(args),
-                expect=4)
+                expect=4, gesdd=2 * HEAD_SVD_CALLS)
         readings["launches"][f"eval_{name}_16_frames"] = launches
     files = sorted(os.listdir(os.path.join(workdir, "par_eval_plain")))
     differ = [k for k in metrics["plain"] if metrics["plain"][k] != metrics["world1"][k]]
@@ -4375,6 +4501,18 @@ def main():
                            **evaluation["raster_step"]},
         "launches_by_path": {k: v["pack_face_tables"]
                              for k, v in path_launches.items()},
+    }, {
+        "name": "svd3x3_gesdd",
+        "kernel": "svd3_gesdd",
+        "route": "cuda",
+        "source": "hierarchicalprobabilistic3dhuman_torch/csrc/svd3_gesdd.cu",
+        "replaces": None,
+        "launches": evaluation["launches"][
+            f"eval_ssp3d_{len(eval_photos())}_frames_b{EVAL_BATCH}"]["svd3_gesdd"],
+        **evaluation["gesdd"],
+        "library_ms": None,
+        "library": "none: torch.linalg.svd gives other column signs",
+        "launches_by_path": {k: v["svd3_gesdd"] for k, v in path_launches.items()},
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
     for tag, readings in (("phase 5", batched), ("phase 6", evaluation),
@@ -4384,7 +4522,7 @@ def main():
         log(f"[{tag}] readings " + json.dumps(
             {k: v for k, v in readings.items()
              if k not in ("kernels", "pack", "raster_step", "launches",
-                          "kernel")}))
+                          "kernel", "gesdd")}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

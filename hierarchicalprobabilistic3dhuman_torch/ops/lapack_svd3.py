@@ -18,21 +18,31 @@ decisions at tolerance boundaries: a small share of matrices flips a column
 sign between two implementations that round differently. XLA on the CPU may
 contract `a * b + c` into one FMA, eager torch never does.
 
-Form: float32, batched over the flattened leading dimensions, every
-per-lane case a masked update of all lanes, as in the JAX module. The
-bidiagonal QR loop ends on the JAX loop's condition (any lane still active)
-and costs one host sync per iteration. Every product is written out as
-elementwise multiplies and adds in a fixed order (no matmul, no reduction
-kernel), and square roots are taken in float64, so the card and the CPU
-round alike and TF32 never enters.
+Two forms, chosen by the tensor's device; neither falls back to the other.
+`svd3x3_gesdd_plain` (CPU tensors): float32 torch ops, batched over the
+flattened leading dimensions, every per-lane case a masked update of all
+lanes, as in the JAX module. Its bidiagonal QR loop ends on the JAX loop's
+condition (any lane still active) and costs one host sync per iteration.
+Every product is written out as elementwise multiplies and adds in a fixed
+order (no matmul, no reduction kernel), and square roots are taken in
+float64, so the card and the CPU round alike and TF32 never enters.
+`svd3x3_gesdd_cuda` (CUDA tensors): the kernel of csrc/svd3_gesdd.cu, one
+thread per matrix and one launch a call, no host sync, the same operations
+in the same order, so the same bits as the torch ops on the card.
 
 Not differentiable (inference and evaluation only).
 """
+
+import ctypes
+import os
+from functools import lru_cache
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hierarchicalprobabilistic3dhuman_torch.ops.cuda_build import (
+    BUILD_DIR, CSRC_DIR, build_library)
 from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import count
 
 # slamch constants for f32.
@@ -591,14 +601,10 @@ def _bdsqr3(d, e, VT, U, thresh):
     return d, VT, U, iterations
 
 
-def svd3x3_gesdd(F):
-    """Batched 3x3 SVD with LAPACK sgesdd sign conventions.
-
-    F = U @ diag(S) @ V^T with S >= 0 descending and U/V column signs as
-    np.linalg.svd gives them on ~98% of generic inputs (the rest are column
-    sign flips at floating-point branch boundaries; see the module
-    docstring). Each call adds its bidiagonal QR loop's iterations, one host
-    sync each, to `svd3x3_gesdd.iterations`.
+def svd3x3_gesdd_plain(F):
+    """svd3x3_gesdd as torch ops (the module docstring): what CPU tensors
+    take, and the kernel's plain version on the card. Adds its bidiagonal
+    QR loop's iterations, one host sync each, to `svd3x3_gesdd.iterations`.
 
     :param F: (..., 3, 3)
     :return: U (..., 3, 3), S (..., 3), V (..., 3, 3), float32
@@ -621,7 +627,7 @@ def svd3x3_gesdd(F):
 
     eye = torch.eye(3, dtype=A.dtype, device=A.device).expand(N, 3, 3)
     s, VT_b, U_b, iterations = _bdsqr3(d, e, eye, eye, thresh)
-    svd3x3_gesdd.iterations += iterations
+    svd3x3_gesdd.plain_iterations += iterations
 
     U = _matmul3(Q, U_b)
     V = _matmul3(VT_b, P.transpose(-1, -2)).transpose(-1, -2)
@@ -629,4 +635,136 @@ def svd3x3_gesdd(F):
             V.reshape(batch + (3, 3)))
 
 
-svd3x3_gesdd.iterations = 0
+SRC_PATH = os.path.join(CSRC_DIR, "svd3_gesdd.cu")
+LIB_PATH = os.path.join(BUILD_DIR, "libsvd3_gesdd.so")
+LOG_PATH = os.path.join(BUILD_DIR, "libsvd3_gesdd.log")
+
+
+def build_svd3_gesdd():
+    """Compile csrc/svd3_gesdd.cu into build/hp3d_torch_kernels/
+    libsvd3_gesdd.so (skipped while the library is newer than the source),
+    with nvcc's register report in libsvd3_gesdd.log beside it.
+
+    :return: the library path
+    """
+    return build_library(SRC_PATH, LIB_PATH, LOG_PATH)
+
+
+@lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(build_svd3_gesdd())
+    lib.hp3d_svd3_gesdd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                                             ctypes.c_void_p]
+    lib.hp3d_svd3_gesdd.restype = ctypes.c_int
+    lib.hp3d_mapped_pointer.argtypes = [ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_void_p)]
+    lib.hp3d_mapped_pointer.restype = ctypes.c_int
+    return lib
+
+
+def svd3x3_gesdd_cuda(F):
+    """Launch the svd3_gesdd kernel: svd3x3_gesdd_plain's U, S, V, bit for
+    bit as its torch ops give them on the card, in one launch on the current
+    stream and with no host sync. The kernel adds the loop's iterations (the
+    most any matrix took) to `svd3x3_gesdd.iterations` in pinned host
+    memory: the count is exact once the stream has been synchronised. It has
+    no backward: an input that requires grad under grad mode raises.
+
+    :param F: (..., 3, 3) float32 on the card
+    :return: U (..., 3, 3), S (..., 3), V (..., 3, 3), float32
+    """
+    if not F.is_cuda or F.dtype != torch.float32:
+        raise ValueError(f"svd3x3_gesdd_cuda: need a CUDA float32 tensor, got "
+                         f"{F.dtype} on {F.device}")
+    if F.dim() < 2 or tuple(F.shape[-2:]) != (3, 3):
+        raise ValueError(f"svd3x3_gesdd_cuda: need shape (..., 3, 3), got "
+                         f"{tuple(F.shape)}")
+    if torch.is_grad_enabled() and F.requires_grad:
+        raise RuntimeError("svd3x3_gesdd_cuda has no backward: call it under "
+                           "torch.no_grad()")
+    batch = F.shape[:-2]
+    A = F.reshape(-1, 3, 3).contiguous()
+    N = A.shape[0]
+    if N >= 2 ** 31:
+        raise ValueError(f"svd3x3_gesdd_cuda: {N} matrices, at most 2**31 - 1")
+    U = torch.empty_like(A)
+    S = torch.empty((N, 3), dtype=torch.float32, device=A.device)
+    V = torch.empty_like(A)
+    if N:                      # a launch of no threads fails
+        with torch.cuda.device(A.device):
+            counter = svd3x3_gesdd.device_counter()
+            stream = torch.cuda.current_stream(A.device).cuda_stream
+            err = _library().hp3d_svd3_gesdd(
+                A.data_ptr(), U.data_ptr(), S.data_ptr(), V.data_ptr(),
+                counter, N, stream)
+        if err != 0:
+            raise RuntimeError(f"svd3_gesdd kernel launch failed: cudaError {err}")
+        svd3x3_gesdd_cuda.launches += 1
+    return (U.reshape(batch + (3, 3)), S.reshape(batch + (3,)),
+            V.reshape(batch + (3, 3)))
+
+
+svd3x3_gesdd_cuda.launches = 0
+
+
+class _Gesdd:
+    """svd3x3_gesdd(F): batched 3x3 SVD with LAPACK sgesdd sign conventions,
+    with the running count of its bidiagonal QR loop's iterations.
+
+    F = U @ diag(S) @ V^T with S >= 0 descending and U/V column signs as
+    np.linalg.svd gives them on ~98% of generic inputs (the rest are column
+    sign flips at floating-point branch boundaries; see the module
+    docstring). CUDA tensors take the kernel (svd3x3_gesdd_cuda), CPU
+    tensors the torch ops (svd3x3_gesdd_plain); both give the same bits.
+
+    `iterations` adds up, over the calls, the loop's trip count (the most
+    iterations any matrix took): on the CPU one host sync each; on the card
+    one pinned host counter that the kernel adds to in stream order, so read
+    it (or set it, e.g. to 0) once the stream is idle.
+    """
+
+    def __init__(self):
+        self.plain_iterations = 0
+        self._counter = None  # pinned int64 (1,), its device address
+
+    def __call__(self, F):
+        """:param F: (..., 3, 3)
+        :return: U (..., 3, 3), S (..., 3), V (..., 3, 3), float32
+        """
+        device = F.device
+        if device.type == "cuda":
+            return svd3x3_gesdd_cuda(F.to(torch.float32))
+        if device.type != "cpu":
+            raise ValueError(f"no svd3x3_gesdd for device {device}")
+        return svd3x3_gesdd_plain(F)
+
+    def device_counter(self):
+        """The device address of the pinned int64 the kernel adds its loop
+        counts to, made on the first call's card (a process of the port
+        drives one card). Made outside inference mode, so that `= 0` may
+        reset it in either mode."""
+        if self._counter is None:
+            with torch.inference_mode(False):
+                host = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+            address = ctypes.c_void_p()
+            err = _library().hp3d_mapped_pointer(host.data_ptr(),
+                                                 ctypes.byref(address))
+            if err != 0:
+                raise RuntimeError(f"no device address for the pinned "
+                                   f"iteration counter: cudaError {err}")
+            self._counter = (host, address.value)
+        return self._counter[1]
+
+    @property
+    def iterations(self):
+        card = 0 if self._counter is None else int(self._counter[0][0])
+        return self.plain_iterations + card
+
+    @iterations.setter
+    def iterations(self, value):
+        if self._counter is not None:
+            self._counter[0].zero_()
+        self.plain_iterations = value
+
+
+svd3x3_gesdd = _Gesdd()

@@ -7,7 +7,8 @@ the CUDA design, and `rasterize_packed`, which takes the place of
 `pack_faces`, which builds all four tables in one launch, and the
 rasterizer (it replaces `_raster_kernel`, :240-345), a per-face scatter into
 a 64-bit z-key buffer and a resolve pass. The file is compiled with nvcc at
-first use into build/hp3d_torch_kernels/ and loaded with ctypes.
+first use into build/hp3d_torch_kernels/ (ops/cuda_build.py) and loaded with
+ctypes.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernels (or
 raise), CPU tensors go to the plain torch versions (`pack_face_tables_plain`
@@ -16,26 +17,22 @@ and ops/rasterizer.py). There is no fall-back from one to the other.
 
 import ctypes
 import os
-import shutil
-import subprocess
 from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import torch
 
+from hierarchicalprobabilistic3dhuman_torch.ops.cuda_build import (
+    BUILD_DIR, CSRC_DIR, NVCC_FLAGS, build_library)
 from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer import (
     rasterize_packed_one)
 
 FACE_CHUNK = 128     # faces per chunk box; the face tables pad to a multiple
 GEOM_ROWS = 16       # packed geometry rows per face (9 used)
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_PATH = os.path.join(_PKG_DIR, "csrc", "rasterize.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "hp3d_torch_kernels")
+SRC_PATH = os.path.join(CSRC_DIR, "rasterize.cu")
 LIB_PATH = os.path.join(BUILD_DIR, "librasterize.so")
 LOG_PATH = os.path.join(BUILD_DIR, "librasterize.log")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 
 class FaceTables(NamedTuple):
@@ -207,16 +204,6 @@ def face_boxes_plain(face_verts, image_hw):
     return torch.stack([rmin, rmax, cmin, cmax], dim=-1).to(torch.int32)
 
 
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    nvcc = candidate if os.path.exists(candidate) else shutil.which("nvcc")
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
-                           "kernels are built from csrc/ at first use")
-    return nvcc
-
-
 def build_rasterizer():
     """Compile csrc/rasterize.cu into build/hp3d_torch_kernels/librasterize.so
     (skipped while the library is newer than the source), with nvcc's
@@ -224,20 +211,7 @@ def build_rasterizer():
 
     :return: the library path
     """
-    if (os.path.exists(LIB_PATH)
-            and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SRC_PATH)):
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc()] + NVCC_FLAGS + ["-Xptxas", "-v", "-o", tmp, SRC_PATH],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/rasterize.cu:\n{proc.stdout}")
-    with open(LOG_PATH, "w") as f:
-        f.write(proc.stdout)
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    return build_library(SRC_PATH, LIB_PATH, LOG_PATH)
 
 
 @lru_cache(maxsize=None)

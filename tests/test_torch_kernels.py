@@ -9,16 +9,26 @@ The `cuda` tests skip where torch finds no CUDA device: a CUDA kernel has
 no CPU mode. On the card the kernel must match the plain version bit for
 bit on mask and depth, and to 1e-5 on attrs; the pack_faces kernel's four
 tables must equal its plain version's (the torch ops on the card) bit for
-bit.
+bit; the svd3_gesdd kernel's U, S and V must equal svd3x3_gesdd_plain's on
+the card bit for bit (a NaN equal to any NaN), with the same count of QR
+loop iterations, and with no host sync.
 """
+
+import time
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
+    PoseMFShapeGaussianNet)
 from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL
+from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
+from hierarchicalprobabilistic3dhuman_torch.ops import lapack_svd3
 from hierarchicalprobabilistic3dhuman_torch.ops import rasterizer_cuda as trc
+from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import (
+    span, spans_between)
 from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
     X_AXIS, ZERO_T, jet_colormap, six_views)
 from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
@@ -290,16 +300,167 @@ def test_silhouette_tables_carry_the_iuv_alone():
     assert sorted(out) == ["depth_images", "iuv_images", "silhouettes"]
 
 
+def test_gesdd_dispatch_on_cpu():
+    """CPU tensors take svd3x3_gesdd_plain and launch nothing; its loop
+    counts a host sync an iteration and one closing test, and adds its
+    iterations to svd3x3_gesdd.iterations, which `= 0` resets. The kernel
+    entry refuses CPU tensors instead of falling back."""
+    F = torch.from_numpy(chip_smoke.gesdd_f_plus_i(n=40)).reshape(8, 5, 3, 3)
+    before = lapack_svd3.svd3x3_gesdd_cuda.launches
+    lapack_svd3.svd3x3_gesdd.iterations = 0
+    t0 = time.time_ns()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with span("gesdd"):
+            out = lapack_svd3.svd3x3_gesdd(F)
+    (rec,) = [r for r in spans_between(t0, time.time_ns()) if r.name == "gesdd"]
+    iterations = lapack_svd3.svd3x3_gesdd.iterations
+    assert iterations > 1 and rec.counters == {"host_syncs": iterations + 1}
+    plain = lapack_svd3.svd3x3_gesdd_plain(F)
+    assert lapack_svd3.svd3x3_gesdd.iterations == 2 * iterations
+    assert [tuple(o.shape) for o in out] == [(8, 5, 3, 3), (8, 5, 3), (8, 5, 3, 3)]
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    lapack_svd3.svd3x3_gesdd.iterations = 0
+    assert lapack_svd3.svd3x3_gesdd.iterations == 0
+    assert lapack_svd3.svd3x3_gesdd_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        lapack_svd3.svd3x3_gesdd_cuda(F)
+    assert lapack_svd3.svd3x3_gesdd_cuda.launches == before
+
+
+def _gesdd_kernel_vs_plain(F):
+    """svd3x3_gesdd on card tensors (one kernel launch) against
+    svd3x3_gesdd_plain's torch ops on the card: U, S, V bit for bit, and
+    the same count of loop iterations.
+
+    :return: the kernel's U, S, V and its iterations
+    """
+    before = lapack_svd3.svd3x3_gesdd_cuda.launches
+    lapack_svd3.svd3x3_gesdd.iterations = 0
+    kernel = lapack_svd3.svd3x3_gesdd(F)
+    torch.cuda.synchronize()
+    assert lapack_svd3.svd3x3_gesdd_cuda.launches == before + 1
+    iterations = lapack_svd3.svd3x3_gesdd.iterations
+    lapack_svd3.svd3x3_gesdd.iterations = 0
+    plain = lapack_svd3.svd3x3_gesdd_plain(F)
+    assert lapack_svd3.svd3x3_gesdd.iterations == iterations
+    for name, k, p in zip("USV", kernel, plain):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        same = chip_smoke.same_bits(k, p)
+        assert bool(same.all()), (name, int((~same).sum()))
+    return kernel, iterations
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3])
+def test_gesdd_kernel_equals_plain_on_card(cuda_device, scale):
+    """2,000 F + I matrices (the head's regime) at three scales, and at the
+    head's shapes (8 x 2, 8 x 3, 8 x 5 lanes)."""
+    F = torch.from_numpy(chip_smoke.gesdd_f_plus_i(scale)).to(cuda_device)
+    _gesdd_kernel_vs_plain(F)
+    for group in (2, 3, 5):
+        _gesdd_kernel_vs_plain(F[:8 * group].reshape(8, group, 3, 3))
+
+
+@pytest.mark.cuda
+def test_gesdd_kernel_on_hand_made_lanes(cuda_device):
+    """chip_smoke.GESDD_LANES at once and each alone (its own count):
+    split_top takes the (1, 2) dlasv2 block in one iteration and two_by_two
+    the m == 2 block (0, 1) in two, each with a rotation that is no signed
+    permutation."""
+    names, F = chip_smoke.gesdd_lanes()
+    F = torch.from_numpy(F).to(cuda_device)
+    _gesdd_kernel_vs_plain(F)
+    for i, name in enumerate(names):
+        (_, _, V), iterations = _gesdd_kernel_vs_plain(F[i:i + 1])
+        if name in ("split_top", "two_by_two"):
+            assert iterations == {"split_top": 1, "two_by_two": 2}[name]
+            assert bool(((V.abs() > 0) & (V.abs() < 1)).any()), name
+
+
+@pytest.mark.cuda
+def test_gesdd_kernel_makes_no_host_sync(cuda_device):
+    """A call at the head's largest shape is one launch and no sync: torch's
+    sync debug mode raises on any. The count reads right after a sync."""
+    F = torch.from_numpy(chip_smoke.gesdd_f_plus_i(n=40)).to(cuda_device)
+    F = F.reshape(8, 5, 3, 3)
+    lapack_svd3.svd3x3_gesdd(F)            # builds and loads the library
+    torch.cuda.synchronize()
+    lapack_svd3.svd3x3_gesdd.iterations = 0
+    before = lapack_svd3.svd3x3_gesdd_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lapack_svd3.svd3x3_gesdd(F)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lapack_svd3.svd3x3_gesdd_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    iterations = lapack_svd3.svd3x3_gesdd.iterations
+    lapack_svd3.svd3x3_gesdd.iterations = 0
+    lapack_svd3.svd3x3_gesdd_plain(F)
+    assert iterations == lapack_svd3.svd3x3_gesdd.iterations > 0
+
+
+@pytest.mark.cuda
+def test_gesdd_count_resets_after_a_first_call_in_inference_mode(
+        cuda_device, monkeypatch):
+    """The pinned counter made by a first call under inference mode (as the
+    evaluation makes it) can be read and set to 0 outside it, and counts
+    the next call's loop as the plain version does."""
+    monkeypatch.setattr(lapack_svd3.svd3x3_gesdd, "_counter", None)
+    F = torch.from_numpy(chip_smoke.gesdd_f_plus_i(n=40)).to(cuda_device)
+    with torch.inference_mode():
+        lapack_svd3.svd3x3_gesdd(F)
+    torch.cuda.synchronize()
+    assert lapack_svd3.svd3x3_gesdd.iterations > 0
+    lapack_svd3.svd3x3_gesdd.iterations = 0
+    assert lapack_svd3.svd3x3_gesdd.iterations == 0
+    _gesdd_kernel_vs_plain(F)
+
+
+@pytest.mark.cuda
+def test_gesdd_head_kernel_equals_plain_on_card(cuda_device, monkeypatch):
+    """PoseMFShapeGaussianNet(svd_impl="lapack") at B = 8: the head on the
+    same features through the kernel (8 launches, one a depth group) and
+    through the plain torch ops gives the same bits on every output."""
+    model = init_weights(PoseMFShapeGaussianNet(svd_impl="lapack"),
+                         torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    proxy = torch.rand((8, 18, 64, 64), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        feats = model.image_encoder(proxy.to(cuda_device))
+        before = lapack_svd3.svd3x3_gesdd_cuda.launches
+        kernel = model._head(feats)
+        assert lapack_svd3.svd3x3_gesdd_cuda.launches == before + len(
+            model.depth_groups) == before + 8
+        monkeypatch.setattr(lapack_svd3, "svd3x3_gesdd_cuda",
+                            lapack_svd3.svd3x3_gesdd_plain)
+        plain = model._head(feats)
+    torch.cuda.synchronize()
+    for key in kernel:
+        assert bool(chip_smoke.same_bits(kernel[key], plain[key]).all()), key
+
+
 @pytest.mark.cuda
 def test_gesdd_svd_on_card_equals_cpu(cuda_device):
-    """The LAPACK-sign SVD is elementwise ops in a fixed order with its
-    square roots in float64: the card gives the CPU's numbers bit for bit
-    on 2,000 F + I matrices (tol 0)."""
-    from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import svd3x3_gesdd
-    F = torch.as_tensor(np.random.RandomState(5).randn(2000, 3, 3) * 0.5
-                        + np.eye(3), dtype=torch.float32)
-    card = [a.cpu() for a in svd3x3_gesdd(F.to(cuda_device))]
-    cpu = svd3x3_gesdd(F)
+    """The LAPACK-sign SVD on the card (the kernel) gives the CPU's numbers
+    bit for bit on 2,000 F + I matrices (tol 0)."""
+    F = torch.from_numpy(chip_smoke.gesdd_f_plus_i())
+    before = lapack_svd3.svd3x3_gesdd_cuda.launches
+    card = [a.cpu() for a in lapack_svd3.svd3x3_gesdd(F.to(cuda_device))]
+    assert lapack_svd3.svd3x3_gesdd_cuda.launches == before + 1
+    cpu = lapack_svd3.svd3x3_gesdd(F)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gesdd_plain_on_card_equals_cpu(cuda_device):
+    """The kernel's plain version is elementwise ops in a fixed order with
+    its square roots in float64: its torch ops on the card give the CPU's
+    numbers bit for bit on 2,000 F + I matrices (tol 0)."""
+    F = torch.from_numpy(chip_smoke.gesdd_f_plus_i())
+    card = [a.cpu() for a in lapack_svd3.svd3x3_gesdd_plain(F.to(cuda_device))]
+    cpu = lapack_svd3.svd3x3_gesdd_plain(F)
     for a, b in zip(card, cpu):
         assert torch.equal(a, b)
 
