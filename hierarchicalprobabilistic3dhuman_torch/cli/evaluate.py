@@ -7,10 +7,10 @@ Counterpart of hierarchicalprobabilistic3dhuman_tpu/cli/evaluate.py
 (run_evaluate :13, build_parser :148): the dataset and metric selection of
 the reference's run_evaluate.py:56-70, SMPL for the three genders from the
 licensed files or synthetic, the distribution predictor (ResNet-18 or
-ResNet-50, MODEL.NUM_RESNET_LAYERS) from a reference checkpoint, the JAX
-package's flax variables file (told apart by the content) or random
-weights, and --svd_impl auto taking the LAPACK-sign SVD exactly for a
-reference checkpoint. Added: --device (default cuda; a run that asks for
+ResNet-50, MODEL.NUM_RESNET_LAYERS; ViT-H/16, MODEL.ENCODER vit_h) from
+a reference checkpoint, the JAX package's flax variables file (told apart
+by the content; none holds a ViT) or random weights, and --svd_impl auto
+taking the LAPACK-sign SVD exactly for a reference checkpoint. Added: --device (default cuda; a run that asks for
 cuda and finds none fails). `lapack_callback` is numpy's sgesdd on a host
 copy on every device: it is never swapped for `lapack`. --profile_dir DIR
 writes one torch.profiler Chrome trace of the evaluation to DIR/trace.json:

@@ -14,7 +14,8 @@ JAX package's flax variables file, told apart by the content; without one
 the network is randomly initialised from seed 0. --svd_impl auto takes the
 LAPACK-sign SVD exactly when a reference predictor checkpoint is given
 (the JAX package's cli/evaluate.py:81-83). MODEL.NUM_RESNET_LAYERS of
---pose_shape_cfg picks ResNet-18 or ResNet-50. --num_devices N
+--pose_shape_cfg picks ResNet-18 or ResNet-50, MODEL.ENCODER vit_h
+ViT-H/16. --num_devices N
 (default: every visible card; 1 keeps the single-device path) starts N
 ranks on one "sample" axis: the uncertainty samples split over them and
 rank 0 writes (JAX's :194-202; parallel/launch.py); more devices than
@@ -157,7 +158,9 @@ def build_predictor(args, mesh=None):
 
 
 def build_pose_shape_model(pose_shape_cfg, svd_impl):
-    """The distribution predictor the config describes."""
+    """The distribution predictor the config describes: its encoder by
+    MODEL.ENCODER ("resnet" where a tree lacks the key, as the reference's
+    own trees do)."""
     from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
         PoseMFShapeGaussianNet)
     model_cfg = pose_shape_cfg.MODEL
@@ -168,7 +171,9 @@ def build_pose_shape_model(pose_shape_cfg, svd_impl):
         delta_i=model_cfg.DELTA_I,
         delta_i_weight=model_cfg.DELTA_I_WEIGHT,
         num_smpl_betas=model_cfg.NUM_SMPL_BETAS,
-        svd_impl=svd_impl)
+        svd_impl=svd_impl,
+        encoder=model_cfg.get("ENCODER", "resnet"),
+        proxy_size=pose_shape_cfg.DATA.PROXY_REP_SIZE)
 
 
 def run_predict(args):

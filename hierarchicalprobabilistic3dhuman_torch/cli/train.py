@@ -20,9 +20,11 @@ stores' record counts may differ; an epoch is the poses store's count over
 the batch size); no dataset is built then. --profile_dir DIR writes one
 torch.profiler Chrome trace of the run to DIR/trace.json: the card's
 kernels, copies and memsets (the CPU's operators with --device cpu) and the
-program's spans (train.step: synth, forward with pose_head, backward,
-optimizer; data.next; host_syncs counts) on one timeline.
-MODEL.NUM_RESNET_LAYERS (-O) picks ResNet-18 or ResNet-50. The
+program's spans (train.step: synth, forward with encoder and pose_head,
+backward, optimizer; data.next; host_syncs counts) on one timeline.
+MODEL.NUM_RESNET_LAYERS (-O) picks ResNet-18 or ResNet-50, MODEL.ENCODER
+vit_h ViT-H/16 (whose checkpoints have the reference's layout alone: the
+JAX package has no ViT, so -R from its pickle refuses one). The
 checkpoints it writes are the reference's torch dicts; a port-trained
 predictor was trained on the Jacobi SVD's signs, so evaluate it with
 --svd_impl jacobi. -R N resumes from epoch_{N:03d}.tar in either layout,
@@ -106,9 +108,9 @@ def native_loaders(native_data_dir, batch_size, rng_seed, n_threads=2):
     """NativeTrainLoaders of the train and val stores under
     `native_data_dir` (its train/ and val/ where they exist, else the
     directory itself for both), seeded rng_seed and rng_seed + 1 (JAX's
-    cli/train.py:184-202). Batches come in one order only from one
-    thread: the ranks of a mesh, which must all see the same batches,
-    take n_threads=1."""
+    cli/train.py:184-202). The batches are a function of the seed and
+    n_threads alone, so the ranks of a mesh, which must all see the same
+    batches, take the same ones."""
     from hierarchicalprobabilistic3dhuman_torch.data.native_loader import (
         NativeTrainLoader)
 
@@ -247,8 +249,7 @@ def _run_train(args, mesh):
         # on C++ threads from packed stores, uint8 textures and backgrounds
         # end to end (normalised on the device).
         loaders = native_loaders(args.native_data_dir,
-                                 pose_shape_cfg.TRAIN.BATCH_SIZE, args.rng_seed,
-                                 n_threads=2 if mesh is None else 1)
+                                 pose_shape_cfg.TRAIN.BATCH_SIZE, args.rng_seed)
         print(f"Native input pipeline: {args.native_data_dir} "
               f"({loaders['train'].steps_per_epoch} train steps/epoch)")
     try:

@@ -1,7 +1,7 @@
 // Native threaded batch sampler for fixed-record binary tensor stores.
 //
 // Counterpart of hierarchicalprobabilistic3dhuman_tpu/native/batch_sampler.cpp
-// with the same C ABI, queue and random draws, and two changes:
+// with the same C ABI and random draws, and three changes:
 //
 //  * Stores may hold different record counts (pack_training_stores.py writes
 //    every pose, every texture and every background). Per item one draw r
@@ -10,9 +10,15 @@
 //    own further draw, rng() % n_s, in store order. In sequential mode store s
 //    takes (k * B + i) % n_s. Stores of equal counts give the JAX package's
 //    bytes exactly.
-//  * Sequential mode takes the window number k from fetch_add's return value,
-//    so two workers never build the same window (a load and a separate
-//    fetch_add let them).
+//  * Batches are handed out in one fixed order, whatever the threads' speeds:
+//    of n workers, worker w builds batches w, w + n, w + 2n, ... (its draws
+//    from its own generator, as before) and bs_next hands out batch 0, 1,
+//    2, ... So the batches are a function of the seed and the thread count
+//    alone, and processes that must take the same batches (the ranks of a
+//    data-parallel mesh) may use several threads. One thread gives the JAX
+//    package's batches; there the workers' batches interleave as they finish.
+//  * Sequential mode builds window k as batch k, so no window is built twice
+//    and the windows come in order.
 //
 // The training input pipeline's host work (record selection and batch
 // assembly from memory-mapped stores of poses / textures / pre-resized
@@ -25,8 +31,8 @@
 #include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <mutex>
-#include <queue>
 #include <random>
 #include <thread>
 #include <vector>
@@ -56,14 +62,18 @@ struct Sampler {
     uint64_t seed = 0;
     bool shuffle = true;
 
-    std::queue<Batch> ready;
+    // Built batches by number; bs_next takes batch next_out. A worker holds
+    // batch k back until k < next_out + capacity, so at most `capacity` wait
+    // here, and the worker building next_out never waits.
+    std::map<uint64_t, Batch> ready;
+    uint64_t next_out = 0;
     std::mutex mu;
     std::condition_variable cv_ready;
     std::condition_variable cv_space;
     size_t capacity = 4;
+    int n_workers = 1;
     std::vector<std::thread> workers;
     std::atomic<bool> stop{false};
-    std::atomic<uint64_t> batch_counter{0};
 
     int64_t batch_bytes() const {
         int64_t per_item = 0;
@@ -77,11 +87,11 @@ struct Sampler {
         const int64_t n0 = stores[0].n_items;
         // idx[s * batch_size + i]: the record of store s for item i.
         std::vector<int64_t> idx(n_stores * batch_size);
-        while (!stop.load(std::memory_order_relaxed)) {
+        for (uint64_t k = worker_id; !stop.load(std::memory_order_relaxed);
+             k += n_workers) {
             Batch b;
             b.bytes.resize(batch_bytes());
             uint8_t* out = b.bytes.data();
-            const uint64_t k = batch_counter.fetch_add(1);
             for (int i = 0; i < batch_size; ++i) {
                 if (shuffle) {
                     const uint64_t r = rng();
@@ -114,11 +124,11 @@ struct Sampler {
             }
             std::unique_lock<std::mutex> lock(mu);
             cv_space.wait(lock, [&] {
-                return ready.size() < capacity || stop.load();
+                return k < next_out + capacity || stop.load();
             });
             if (stop.load()) return;
-            ready.push(std::move(b));
-            cv_ready.notify_one();
+            ready.emplace(k, std::move(b));
+            cv_ready.notify_all();
         }
     }
 };
@@ -164,7 +174,8 @@ int bs_add_store(void* handle, const char* path, int64_t item_bytes,
 int bs_start(void* handle, int n_threads) {
     auto* s = static_cast<Sampler*>(handle);
     if (s->stores.empty()) return -1;
-    for (int t = 0; t < (n_threads > 0 ? n_threads : 2); ++t) {
+    s->n_workers = n_threads > 0 ? n_threads : 2;
+    for (int t = 0; t < s->n_workers; ++t) {
         s->workers.emplace_back(&Sampler::worker_loop, s, t);
     }
     return 0;
@@ -174,15 +185,20 @@ int64_t bs_batch_bytes(void* handle) {
     return static_cast<Sampler*>(handle)->batch_bytes();
 }
 
-// Blocks until a batch is ready; copies it into out. Returns 0 on success.
+// Blocks until the next batch in order is ready; copies it into out.
+// Returns 0 on success.
 int bs_next(void* handle, uint8_t* out) {
     auto* s = static_cast<Sampler*>(handle);
     std::unique_lock<std::mutex> lock(s->mu);
-    s->cv_ready.wait(lock, [&] { return !s->ready.empty() || s->stop.load(); });
-    if (s->ready.empty()) return -1;
-    Batch b = std::move(s->ready.front());
-    s->ready.pop();
-    s->cv_space.notify_one();
+    s->cv_ready.wait(lock, [&] {
+        return s->ready.count(s->next_out) > 0 || s->stop.load();
+    });
+    auto it = s->ready.find(s->next_out);
+    if (it == s->ready.end()) return -1;
+    Batch b = std::move(it->second);
+    s->ready.erase(it);
+    ++s->next_out;
+    s->cv_space.notify_all();
     lock.unlock();
     std::memcpy(out, b.bytes.data(), b.bytes.size());
     return 0;
@@ -190,7 +206,12 @@ int bs_next(void* handle, uint8_t* out) {
 
 void bs_destroy(void* handle) {
     auto* s = static_cast<Sampler*>(handle);
-    s->stop.store(true);
+    {
+        // Under the lock, so that no thread sees stop false in its wait's
+        // test and then blocks after the notify below.
+        std::lock_guard<std::mutex> lock(s->mu);
+        s->stop.store(true);
+    }
     s->cv_space.notify_all();
     s->cv_ready.notify_all();
     for (auto& t : s->workers) t.join();

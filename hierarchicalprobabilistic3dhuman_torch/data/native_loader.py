@@ -17,7 +17,10 @@ Differences from the JAX package's copy:
   * stores may hold different record counts (see csrc/batch_sampler.cpp);
     an epoch is the first store's count, the poses' in NativeTrainLoader;
   * a failed build or sampler call raises; nothing falls back to the Python
-    DataLoader.
+    DataLoader;
+  * the batches come in one order for a seed and thread count, however the
+    threads run (see csrc/batch_sampler.cpp), so the ranks of a mesh take
+    the same batches with several threads each.
 """
 
 import ctypes

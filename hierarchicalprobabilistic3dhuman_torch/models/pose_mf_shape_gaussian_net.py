@@ -3,9 +3,13 @@
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/models/
 pose_mf_shape_gaussian_net.py::PoseMFShapeGaussianNet (:81-241):
 
-  * ResNet-18 or ResNet-50 encoder over the 18-channel proxy
-    representation (num_resnet_layers, the JAX package's :110-118): 512
-    features and fc1 512 wide, or 2048 features and fc1 1024 wide;
+  * an image encoder over the 18-channel proxy representation, chosen by
+    name (`encoder`): "resnet", ResNet-18 or ResNet-50 by num_resnet_layers
+    (the JAX package's :110-118), 512 features and fc1 512 wide, or 2048
+    features and fc1 1024 wide; or "vit_h", ViT-H/16 (models/vit.py; the
+    JAX package has none), 1280 mean-pooled token features and fc1 1024
+    wide, whose drop path takes the step's draw source (`forward(inputs,
+    draws)`; a ResNet draws nothing);
   * shape head -> diagonal Gaussian (mean, log std) over SMPL betas;
   * glob/cam heads predict deltas against fixed initial estimates
     (identity rot6d, [0.9, 0, 0] weak-perspective cam);
@@ -19,7 +23,7 @@ pose_mf_shape_gaussian_net.py::PoseMFShapeGaussianNet (:81-241):
     sgesdd on a host copy), the last two for reference checkpoints;
   * encoder_bf16 (the JAX package's encoder_dtype=bfloat16, :107): the
     encoder alone under torch.autocast to bfloat16; its parameters,
-    BatchNorm and the head stay float32.
+    BatchNorm (LayerNorm) and the head stay float32.
 
 The head runs in full float32: on the card its matmuls run with TF32 off.
 Parameter names are the reference checkpoint's state-dict keys
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 
 from hierarchicalprobabilistic3dhuman_torch.models.resnet import resnet18, resnet50
 from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL_PARENTS
+from hierarchicalprobabilistic3dhuman_torch.models.vit import vit_h
 from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import (
     proper_svd3x3, proper_svd3x3_gesdd, proper_svd3x3_lapack)
 from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import span
@@ -42,6 +47,9 @@ from hierarchicalprobabilistic3dhuman_torch.utils.device import full_f32_matmul
 SVD_IMPLS = ("jacobi", "lapack", "lapack_callback")
 # num_resnet_layers -> (encoder, fc1 width)
 ENCODERS = {18: (resnet18, 512), 50: (resnet50, 1024)}
+# The encoders by name; "resnet" takes its depth from num_resnet_layers.
+ENCODER_NAMES = ("resnet", "vit_h")
+VIT_FC1_DIM = 1024
 
 
 def immediate_parents_to_all_parents(immediate_parents):
@@ -69,13 +77,18 @@ class PoseMFShapeGaussianNet(nn.Module):
 
     def __init__(self, num_in_channels=18, num_resnet_layers=18, embed_dim=256,
                  delta_i=True, delta_i_weight=1.0, num_smpl_betas=10,
-                 svd_sweeps=8, svd_impl="jacobi", encoder_bf16=False):
+                 svd_sweeps=8, svd_impl="jacobi", encoder_bf16=False,
+                 encoder="resnet", proxy_size=256):
         super().__init__()
         if svd_impl not in SVD_IMPLS:
             raise ValueError(f"svd_impl must be one of {SVD_IMPLS}, got "
                              f"{svd_impl!r}")
-        if num_resnet_layers not in ENCODERS:
+        if encoder not in ENCODER_NAMES:
+            raise ValueError(f"encoder must be one of {ENCODER_NAMES}, got "
+                             f"{encoder!r}")
+        if encoder == "resnet" and num_resnet_layers not in ENCODERS:
             raise ValueError(f"Unsupported resnet depth {num_resnet_layers}")
+        self.encoder = encoder
         self.svd_impl = svd_impl
         self.encoder_bf16 = encoder_bf16
         self.parents_dict = immediate_parents_to_all_parents(
@@ -86,8 +99,12 @@ class PoseMFShapeGaussianNet(nn.Module):
         self.delta_i_weight = delta_i_weight
         self.svd_sweeps = svd_sweeps
 
-        encoder, fc1_dim = ENCODERS[num_resnet_layers]
-        self.image_encoder = encoder(in_channels=num_in_channels)
+        if encoder == "vit_h":
+            self.image_encoder = vit_h(num_in_channels, proxy_size)
+            fc1_dim = VIT_FC1_DIM
+        else:
+            make_resnet, fc1_dim = ENCODERS[num_resnet_layers]
+            self.image_encoder = make_resnet(in_channels=num_in_channels)
         feat_dim = self.image_encoder.num_features
         self.fc1 = nn.Linear(feat_dim, fc1_dim)
         self.fc_shape = nn.Linear(fc1_dim, num_smpl_betas * 2)
@@ -111,11 +128,21 @@ class PoseMFShapeGaussianNet(nn.Module):
             depth_groups.setdefault(len(self.parents_dict[joint]), []).append(joint)
         self.depth_groups = [depth_groups[d] for d in sorted(depth_groups)]
 
-    def forward(self, inputs):
-        with torch.autocast(inputs.device.type, dtype=torch.bfloat16,
-                            enabled=self.encoder_bf16):
-            # float32 out: each BatchNorm normalises in float32.
-            feats = self.image_encoder(inputs)
+    @property
+    def takes_draws(self):
+        """Whether a train step hands the forward its draw source (a ViT's
+        drop path); a ResNet draws nothing and is called without one."""
+        return self.encoder != "resnet"
+
+    def forward(self, inputs, draws=None):
+        """:param draws: the step's draw source, handed to the encoder where
+        given (`takes_draws`)"""
+        with span("encoder"), torch.autocast(
+                inputs.device.type, dtype=torch.bfloat16, enabled=self.encoder_bf16):
+            # float32 out: each BatchNorm (the ViT's LayerNorm) normalises in
+            # float32.
+            feats = (self.image_encoder(inputs) if draws is None
+                     else self.image_encoder(inputs, draws))
         with full_f32_matmul(), span("pose_head"):
             return self._head(feats)
 

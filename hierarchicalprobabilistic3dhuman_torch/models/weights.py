@@ -22,15 +22,25 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from hierarchicalprobabilistic3dhuman_torch.models.vit import ViT
 from hierarchicalprobabilistic3dhuman_torch.runtime.checkpointing import (
     EmptyState, ScaleByAdamState, checkpoint_format, load_checkpoint,
     load_variables)
 
 
+# A ViT's position table is drawn from N(0, POS_EMBED_STD^2).
+POS_EMBED_STD = 0.02
+NO_JAX_VIT = ("the JAX package has no ViT encoder, so a ViT predictor has no "
+              "JAX (flax) layout: keep its weights and training checkpoints in "
+              "the reference's torch layout")
+
+
 def init_weights(module, generator):
     """Re-draw every conv/linear weight from N(0, 1/fan_in) with `generator`
-    (a CPU torch.Generator); biases and BatchNorm statistics start at the
-    identity (zero bias, unit scale, zero mean, unit variance)."""
+    (a CPU torch.Generator), in module order; biases, BatchNorm statistics
+    and LayerNorms start at the identity (zero bias, unit scale, zero mean,
+    unit variance); a ViT's position table from N(0, POS_EMBED_STD^2),
+    drawn before its layers."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -39,9 +49,18 @@ def init_weights(module, generator):
                                / fan_in ** 0.5)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, ViT):
+                m.pos_embed.copy_(torch.randn(m.pos_embed.shape, generator=generator)
+                                  * POS_EMBED_STD)
     return module
+
+
+def _refuse_vit(model):
+    """Raise for a predictor whose encoder the JAX package lacks."""
+    if model.encoder != "resnet":
+        raise ValueError(NO_JAX_VIT)
 
 
 def _weights_file(path, model, flax_to_torch):
@@ -163,7 +182,10 @@ def torch_to_flax_resnet(state_dict, layers=None):
 def torch_to_flax_predictor(state_dict, num_joints=23, resnet_layers=None):
     """The JAX package's torch_to_flax_predictor
     (models/pose_mf_shape_gaussian_net.py:244), in numpy: a predictor state
-    dict -> flax variables. `resnet_layers` as torch_to_flax_resnet's."""
+    dict -> flax variables. `resnet_layers` as torch_to_flax_resnet's. A
+    ViT predictor's state dict raises (NO_JAX_VIT)."""
+    if "image_encoder.pos_embed" in state_dict:
+        raise ValueError(NO_JAX_VIT)
     state_dict = {k: np.asarray(v) for k, v in state_dict.items()}
     enc = torch_to_flax_resnet(
         {k[len("image_encoder."):]: v for k, v in state_dict.items()
@@ -235,7 +257,9 @@ def flax_to_torch_hrnet(variables, model):
 def flax_to_torch_predictor(variables, model, params_only=False):
     """Inverse of the JAX package's torch_to_flax_predictor
     (models/pose_mf_shape_gaussian_net.py:244); of the parameters alone
-    with `params_only` (e.g. optax's moments, a tree like the params)."""
+    with `params_only` (e.g. optax's moments, a tree like the params). A
+    ViT predictor raises (NO_JAX_VIT)."""
+    _refuse_vit(model)
     return _flax_to_state_dict(variables, model, _predictor_path, params_only)
 
 
@@ -251,10 +275,12 @@ def to_reference_layout(checkpoint, model, optimizer):
     exp_avg_sq of each of `model.parameters()`, kernels transposed as the
     weights are (HWIO -> OIHW, (in, out) -> (out, in)). `optimizer` is
     `model`'s Adam, whose hyperparameters the state keeps. A checkpoint in
-    the reference's layout is returned as it is."""
+    the reference's layout is returned as it is; one in JAX's for a ViT
+    predictor raises (NO_JAX_VIT)."""
     opt_state = checkpoint["optimiser_state_dict"]
     if not isinstance(opt_state, tuple):
         return checkpoint
+    _refuse_vit(model)
     adam, _ = opt_state
     if not isinstance(adam, ScaleByAdamState):
         raise ValueError(f"optimiser state {type(adam).__name__}: only "
@@ -287,7 +313,8 @@ def to_jax_layout(checkpoint, model):
     through torch_to_flax_predictor, and torch.optim.Adam's state as
     (ScaleByAdamState(count, mu, nu), EmptyState()) with mu and nu in the
     params tree's layout. No entry point calls it: chip_smoke.py and the
-    tests do."""
+    tests do. A ViT predictor raises (NO_JAX_VIT)."""
+    _refuse_vit(model)
     names = [n for n, _ in model.named_parameters()]
     state = checkpoint["optimiser_state_dict"]["state"]
     buffers = {k: v for k, v in checkpoint["model_state_dict"].items()

@@ -33,6 +33,7 @@ same draws, and:
     its rows, runs the sampler on all N x 8 lanes of them, then keeps its
     part of the N samples: only the SMPL of the samples is split over
     "sample", as JAX constrains the samples only after the sampler;
+  * draws a ViT's drop-path masks for the whole batch and keeps its rows;
   * holds the 2D joints of its samples, and of the mode on sample index 0
     alone, so each 2D-joint set of the global batch is counted once;
   * back-propagates its share of the global loss (losses/) through the
@@ -205,6 +206,20 @@ def make_synth_data_fn(pose_shape_cfg, smpl_model, renderer, edge_detect_model):
     return synth
 
 
+class GlobalRowDraws:
+    """Uniform draws of the global batch, of which this rank keeps its rows:
+    a rank's drop-path masks, as the 1-rank run draws them."""
+
+    def __init__(self, draws, mesh):
+        self.draws = draws
+        self.mesh = mesh
+
+    def uniform(self, shape, minval=0.0, maxval=1.0):
+        rows = shape[0] * self.mesh.shape["data"]
+        return self.mesh.take_rows(
+            self.draws.uniform((rows,) + tuple(shape[1:]), minval, maxval))
+
+
 class TrainStep:
     """One step: synthetic batch -> forward -> loss (-> backward and Adam);
     the JAX package's make_train_step.
@@ -246,7 +261,16 @@ class TrainStep:
             smpl = self.smpl_model
             mesh = self.mesh
             mode_here = mesh is None or mesh.sample_index == 0
-            pred = (self.model if self.ddp is None else self.ddp)(proxy)
+            model = self.model if self.ddp is None else self.ddp
+            # The one place that decides whether the predictor draws: a ViT's
+            # drop path draws here, before the samples' draws. A predictor
+            # without `takes_draws` (the benchmark's reference ResNet
+            # predictor among them) takes the proxy alone.
+            if getattr(self.model, "takes_draws", False):
+                pred = model(proxy, draws=draws if mesh is None
+                             else GlobalRowDraws(draws, mesh))
+            else:
+                pred = model(proxy)
 
             pred_glob_rotmats = rot6d_to_rotmat(pred["glob"])
             mode = smpl(body_pose=pred["pose_rotmats_mode"],

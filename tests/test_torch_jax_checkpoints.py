@@ -334,12 +334,17 @@ def test_run_train_torch_resumes_a_jax_experiment(jax_files, tmp_path):
 
 def test_experiment_config_and_precision_read_as_they_are(jax_files, tmp_path):
     """A JAX experiment's pose_shape_cfg.yaml merges into the port's config
-    to the same tree, and its encoder_precision.txt gives the same mode."""
+    to the same tree, but for the port's own key MODEL.ENCODER, which keeps
+    its default (the ResNet), and its encoder_precision.txt gives the same
+    mode."""
+    import yaml
     cfg = t_cfg()
     cfg.merge_from_file(str(jax_files.exp / "pose_shape_cfg.yaml"))
     jcfg = j_cfg()
     jcfg.merge_from_list(CFG_OPTS)
-    assert cfg.dump() == jcfg.dump() and cfg.MODEL.NUM_RESNET_LAYERS == 50
+    tree = yaml.safe_load(cfg.dump())
+    assert tree["MODEL"].pop("ENCODER") == "resnet"
+    assert tree == yaml.safe_load(jcfg.dump()) and cfg.MODEL.NUM_RESNET_LAYERS == 50
     for bf16 in (False, True):
         j_resolve_encoder_precision(str(tmp_path), bf16, resuming=False)
         assert resolve_encoder_precision(str(tmp_path), not bf16, resuming=True) == bf16

@@ -14,6 +14,10 @@ csrc/batch_sampler.cpp) against the JAX package's
   poses.
 - In sequential mode with several threads no window comes twice (JAX's
   workers read the window counter and add to it in two steps).
+- With several threads the batches come in one order: worker j % n's, as
+  one thread of its generator draws them; sequential windows in order
+  (the test above).
+- Closing a sampler whose threads wait for room never hangs.
 - A failed build or a failed sampler call raises.
 """
 
@@ -153,8 +157,9 @@ def test_unequal_counts_jax_raises_port_trains(unequal_stores):
 @pytest.mark.parametrize("n_threads", [2, 8])
 def test_sequential_mode_no_window_twice(tmp_path, n_threads):
     """Record r holds r: each batch must be one window k*B .. k*B + B - 1,
-    and over 40 batches (windows repeat only after 250) no k twice. 8
-    threads against a queue of 4 is the stress case."""
+    and over 40 batches (windows repeat only after 250) no k twice; they
+    come in order, batch k as window k. 8 threads against a queue of 4 is
+    the stress case."""
     ids = np.arange(1000, dtype=np.float32)[:, None].repeat(3, axis=1)
     path = tnl.write_tensor_store(str(tmp_path / "ids.bin"), ids)
     B = 4
@@ -169,8 +174,61 @@ def test_sequential_mode_no_window_twice(tmp_path, n_threads):
             np.testing.assert_array_equal(batch[:, 0], np.arange(first, first + B))
             windows.append(first // B)
         assert len(set(windows)) == len(windows), sorted(windows)
+        assert windows == list(range(40))
     finally:
         sampler.close()
+
+
+GOLDEN = 0x9E3779B97F4A7C15  # worker w's generator: seed + GOLDEN * (w + 1)
+
+
+@pytest.mark.parametrize("n_threads", [2, 3, 8])
+def test_batches_come_in_one_order(equal_stores, n_threads):
+    """Of n workers, batch j is worker j % n's (j // n)-th batch, whatever
+    the threads' speeds: the (j // n)-th batch of one thread seeded so that
+    its worker's generator is that worker's. So two samplers of one seed and
+    thread count hand out the same batches (as the ranks of a mesh need)."""
+    paths, _ = equal_stores
+    order = [paths["poses"], paths["backgrounds"], paths["textures"]]
+    seed, n_batches = 11, 4 * n_threads
+    many = tnl.NativeBatchSampler(order, 8, n_threads=n_threads, seed=seed)
+    try:
+        got = [many.next() for _ in range(n_batches)]
+    finally:
+        many.close()
+    for w in range(n_threads):
+        one = tnl.NativeBatchSampler(order, 8, n_threads=1,
+                                     seed=(seed + GOLDEN * w) % 2 ** 64)
+        try:
+            for j in range(w, n_batches, n_threads):
+                for a, b in zip(got[j], one.next()):
+                    assert a.tobytes() == b.tobytes(), (w, j)
+        finally:
+            one.close()
+
+
+def test_close_never_hangs(tmp_path):
+    """2,000 samplers of 8 threads, closed just after a batch was taken (so
+    threads woken to test for room are testing): every close returns. With
+    stop set outside the lock, a thread that tested just before it and
+    blocked just after the notify never woke, and this hung within the
+    2,000."""
+    import threading
+
+    ids = np.arange(64, dtype=np.int64)[:, None]
+    path = tnl.write_tensor_store(str(tmp_path / "ids.bin"), ids)
+
+    def cycle():
+        for _ in range(2000):
+            sampler = tnl.NativeBatchSampler([path], 1, n_threads=8, shuffle=False)
+            for _ in range(16):
+                sampler.next()
+            sampler.close()
+
+    worker = threading.Thread(target=cycle, daemon=True)
+    worker.start()
+    worker.join(60)
+    assert not worker.is_alive()
 
 
 def test_native_train_loader_dict_batches(tmp_path):
