@@ -785,11 +785,22 @@ def phase_kernel_vs_plain(device):
     return scenes, worst, worst_table
 
 
-def kernel_launches(reset=False):
-    """The three kernels' launch counts, each set to 0 first if `reset`.
+# The Jacobi head's graph counts (models/graphed_head.py), by their tracing
+# counters' names: GraphedHead attribute -> key.
+HEAD_GRAPH_COUNTS = {"replays": "pose_head.graph_replays",
+                     "captures": "pose_head.graph_captures",
+                     "eager": "pose_head.graph_eager"}
 
-    :return: {"rasterize", "pack_face_tables", "svd3_gesdd": count}
+
+def kernel_launches(reset=False):
+    """The three kernels' launch counts and the Jacobi head's graph counts,
+    each set to 0 first if `reset`.
+
+    :return: {"rasterize", "pack_face_tables", "svd3_gesdd": count,
+        "pose_head.graph_replays", ".graph_captures", ".graph_eager": count}
     """
+    from hierarchicalprobabilistic3dhuman_torch.models.graphed_head import (
+        graphed_head)
     from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import (
         svd3x3_gesdd_cuda)
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
@@ -800,14 +811,19 @@ def kernel_launches(reset=False):
     if reset:
         for fn in counters.values():
             fn.launches = 0
-    return {name: fn.launches for name, fn in counters.items()}
+        for attr in HEAD_GRAPH_COUNTS:
+            setattr(graphed_head, attr, 0)
+    return {**{name: fn.launches for name, fn in counters.items()},
+            **{key: getattr(graphed_head, attr)
+               for attr, key in HEAD_GRAPH_COUNTS.items()}}
 
 
 def run_path(tag, what, fn, expect, gesdd=0):
     """Drive one path with the kernels' launch counts set to 0 just before
     it and read just after: the rasterizer's two must each equal `expect`,
     svd3_gesdd's `gesdd` (HEAD_SVD_CALLS a predictor call with the
-    LAPACK-sign head, 0 with the Jacobi one).
+    LAPACK-sign head, 0 with the Jacobi one); the Jacobi head's graph
+    counts are logged beside them.
 
     :return: fn's result, the counts
     """
@@ -820,7 +836,7 @@ def run_path(tag, what, fn, expect, gesdd=0):
     want = {"rasterize": expect, "pack_face_tables": expect, "svd3_gesdd": gesdd}
     log(f"[{tag}] {what}: {wall:.2f} s; kernel launches {launches}, "
         f"expected {want}")
-    if launches != want:
+    if {k: launches[k] for k in want} != want:
         raise AssertionError(f"{what}: expected kernel launches {want}, got "
                              f"{launches}")
     return result, launches
@@ -4523,7 +4539,9 @@ def main():
             {k: v for k, v in readings.items()
              if k not in ("kernels", "pack", "raster_step", "launches",
                           "kernel", "gesdd")}))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "pose_head_graphs_by_path": {
+        k: {key: v[key] for key in HEAD_GRAPH_COUNTS.values() if key in v}
+        for k, v in path_launches.items()}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

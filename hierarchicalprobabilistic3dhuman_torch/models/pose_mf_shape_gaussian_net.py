@@ -23,7 +23,9 @@ pose_mf_shape_gaussian_net.py::PoseMFShapeGaussianNet (:81-241):
     sgesdd on a host copy), the last two for reference checkpoints;
   * encoder_bf16 (the JAX package's encoder_dtype=bfloat16, :107): the
     encoder alone under torch.autocast to bfloat16; its parameters,
-    BatchNorm (LayerNorm) and the head stay float32.
+    BatchNorm (LayerNorm) and the head stay float32;
+  * on the card the Jacobi head runs as CUDA graphs of its forward and
+    backward (models/graphed_head.py), the same kernels replayed.
 
 The head runs in full float32: on the card its matmuls run with TF32 off.
 Parameter names are the reference checkpoint's state-dict keys
@@ -36,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hierarchicalprobabilistic3dhuman_torch.models.graphed_head import graphed_head
 from hierarchicalprobabilistic3dhuman_torch.models.resnet import resnet18, resnet50
 from hierarchicalprobabilistic3dhuman_torch.models.smpl import SMPL_PARENTS
 from hierarchicalprobabilistic3dhuman_torch.models.vit import vit_h
@@ -50,6 +53,8 @@ ENCODERS = {18: (resnet18, 512), 50: (resnet50, 1024)}
 # The encoders by name; "resnet" takes its depth from num_resnet_layers.
 ENCODER_NAMES = ("resnet", "vit_h")
 VIT_FC1_DIM = 1024
+# The modules whose parameters `_head` reads.
+HEAD_MODULES = ("fc1", "fc_shape", "fc_cam", "fc_glob", "fc_embed", "fc_pose")
 
 
 def immediate_parents_to_all_parents(immediate_parents):
@@ -144,7 +149,19 @@ class PoseMFShapeGaussianNet(nn.Module):
             feats = (self.image_encoder(inputs) if draws is None
                      else self.image_encoder(inputs, draws))
         with full_f32_matmul(), span("pose_head"):
-            return self._head(feats)
+            return graphed_head(self, feats)
+
+    def head_modules(self):
+        """The modules whose parameters `_head` reads."""
+        return [getattr(self, name) for name in HEAD_MODULES]
+
+    def head_parameters(self):
+        """The parameters `_head` reads, in a fixed order."""
+        return [p for m in self.head_modules() for p in m.parameters()]
+
+    def head_buffers(self):
+        """The buffers `_head` reads."""
+        return [self.init_glob, self.init_cam]
 
     def _head(self, feats):
         B = feats.shape[0]
