@@ -24,7 +24,7 @@ Phases (any failure exits non-zero before the final line):
      against the same core on the CPU (plain rasterizer) on small inputs from
      3 seeds, with the kernel given the CPU's own tables, and report why
      colours differ where they do;
-  4. time the per-image predict and its stages; the kernel at the predict
+  4. time the predict at batch 1 and its stages; the kernel at the predict
      and evaluation shapes beside its bound at each (the bytes it must move
      and the pixel-face tests the function needs); the device launches of
      one kernel call, counted from a profile; the rasterize step (tables +
@@ -40,13 +40,13 @@ Phases (any failure exits non-zero before the final line):
      24 meshes at 512^2) and of the samples figure's (18 meshes), built by
      the path from one batched HRNet + core call; (b) `run_predict_torch.py
      --batch_size 4 --no_vis` on the 12 demo photos (no launch,
-     outputs.npz, outputs within 1e-4 of the per-image driver's); (c) the
+     outputs.npz, outputs within 1e-4 of the driver's at batch 1); (c) the
      same with figures and uncrops (one launch of each kernel a chunk); (d)
-     the per-image samples and uncrop figures on one photo (two launches);
+     the samples and uncrop figures on one photo at batch 1 (two launches);
      (e) a demo photo pasted into a 960x720 canvas through both keypoint
      detectors (boxes on the card within 1 px of the CPU's, same weights),
-     and through the batched --no_vis driver with the single-person one
-     (box and outputs within 1e-4 of the per-image driver's); (f) the
+     and through the --no_vis driver at batch 2 with the single-person one
+     (box and outputs within 1e-4 of the driver's at batch 1); (f) the
      kernels at the two new shapes beside their bounds and K1's plain
      version (one call), --no_vis img/s at
      batch 1, 4 and 8 and with the bfloat16 HRNet, ms/image with figures at
@@ -1277,12 +1277,12 @@ def phase_timing(argv, scenes):
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
         build_parser, build_predictor)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
-        make_hrnet_predictor)
+        make_hrnet_batch_predictor)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
-        make_predict_core, predict_pose_mf_shape_gaussian_net)
+        make_predict_core, predict_folder_batched)
     import cv2
 
-    # Per-image predict, the whole loop (host clock ending in a sync),
+    # Predict at batch 1, the whole loop (host clock ending in a sync),
     # stage by stage with CUDA events.
     kwargs = build_predictor(build_parser().parse_args(argv))
     n = len(DEMO_PHOTOS)
@@ -1290,34 +1290,36 @@ def phase_timing(argv, scenes):
     for _ in range(6):                                   # 1 warm-up + 5
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        predict_pose_mf_shape_gaussian_net(**kwargs)
+        predict_folder_batched(batch_size=1, **kwargs)
         torch.cuda.synchronize()
         per_image.append((time.perf_counter() - t0) * 1e3 / n)
     predict_ms = statistics.median(per_image[1:])
 
-    # Stages of one image on the card: HRNet keypoints, then the core.
+    # Stages of one image on the card: HRNet keypoints (its upload
+    # included), then the core.
     device = kwargs["device"]
     image = cv2.cvtColor(cv2.imread(os.path.join(DEMO, DEMO_PHOTOS[0])),
                          cv2.COLOR_BGR2RGB)
-    hrnet_predictor = make_hrnet_predictor(
+    hrnet_batch = make_hrnet_batch_predictor(
         kwargs["hrnet"], kwargs["hrnet_cfg"], device,
         bbox_scale_factor=kwargs["pose_shape_cfg"].DATA.BBOX_SCALE_FACTOR)
-    hrnet_ms = median_ms(lambda: hrnet_predictor(image))
-    kp = hrnet_predictor(image)
+    hrnet_ms = median_ms(lambda: hrnet_batch(
+        torch.as_tensor(image, device=device)[None]))
+    kp = hrnet_batch(torch.as_tensor(image, device=device)[None])
     core = make_predict_core(
         kwargs["pose_shape_model"], kwargs["pose_shape_cfg"],
         kwargs["smpl_model"], kwargs["edge_detect_model"],
         figure_renderer(device, 512), kwargs["hrnet_cfg"])
     generator = torch.Generator(device=device).manual_seed(0)
-    core_ms = median_ms(lambda: core(kp["cropped_image"][None],
-                                     kp["joints2D"][None],
-                                     kp["joints2Dconfs"][None],
-                                     generator=generator))
 
-    profile_core(lambda: core(kp["cropped_image"][None], kp["joints2D"][None],
-                              kp["joints2Dconfs"][None], generator=generator))
+    def call_core():
+        return core(kp["cropped_image"], kp["joints2D"], kp["joints2Dconfs"],
+                    generator=generator)
 
-    log(f"[phase 4] per-image predict: median {predict_ms:.2f} ms/image "
+    core_ms = median_ms(call_core)
+    profile_core(call_core)
+
+    log(f"[phase 4] predict at batch 1: median {predict_ms:.2f} ms/image "
         f"(runs {[round(t, 2) for t in per_image]}); stages of one image: "
         f"HRNet keypoints {hrnet_ms:.2f} ms, predict core {core_ms:.2f} ms, "
         f"the rest (decode, figure, PNG write) ~"
@@ -1459,15 +1461,15 @@ def detector_canvas(workdir):
 
 def phase_detector(workdir):
     """Uncropped photos through both keypoint bootstrap detectors, as the
-    CLI builds them: the per-image predict (figure and uncrop) on the card
+    CLI builds them: the predict at batch 1 (figure and uncrop) on the card
     with each, and each detector's boxes on the card against the same
     detector on the CPU with the same weights (within 1 px); then the
-    batched --no_vis driver with the single-person detector, its box and
-    outputs against the per-image driver's on the card."""
+    --no_vis driver at batch 2 with the single-person detector, its box and
+    outputs against those at batch 1 on the card."""
     from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
         _make_detector, build_parser, build_predictor)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
-        predict_folder_batched, predict_pose_mf_shape_gaussian_net)
+        predict_folder_batched)
 
     image_dir, canvas = detector_canvas(workdir)
     image = torch.from_numpy(canvas).permute(2, 0, 1).float() / 255.0
@@ -1496,7 +1498,7 @@ def phase_detector(workdir):
         results, _ = run_path(
             "phase 5e", f"run_predict_torch.py --detector {kind} "
             f"--visualise_uncropped on a {CANVAS_HW[1]}x{CANVAS_HW[0]} photo",
-            lambda: predict_pose_mf_shape_gaussian_net(**kwargs), expect=1)
+            lambda: predict_folder_batched(batch_size=1, **kwargs), expect=1)
         check_results("phase 5e", results, ["canvas.png"])
         check_image(os.path.join(save_dir, "canvas.png"), FIGURE_SHAPE)
         check_image(os.path.join(save_dir, "canvas_uncrop.png"),
@@ -1513,10 +1515,10 @@ def phase_detector(workdir):
                                  f"from the CPU's")
         worst = max(worst, diff)
         if kind == "keypoint":
-            per_image, per_image_boxes = results, card_boxes[0]
-    # The batched driver hands the detector each photo of the chunk on the
-    # card; the per-image driver its one photo. `recorded` wraps the loop's
-    # last detector, the single-person one.
+            batch1, batch1_boxes = results, card_boxes[0]
+    # At batch 2 the driver hands the detector each photo of the chunk on
+    # the card, as at batch 1. `recorded` wraps the loop's last detector,
+    # the single-person one.
     card_boxes = []
     batched, _ = run_path(
         "phase 5e", "run_predict_torch.py --detector keypoint --batch_size 2 "
@@ -1527,22 +1529,22 @@ def phase_detector(workdir):
             batch_size=2, save_vis=False), expect=0)
     check_results("phase 5e", batched, ["canvas.png"])
     diffs = {k: float(np.abs(batched["canvas.png"][k]
-                             - per_image["canvas.png"][k]).max())
+                             - batch1["canvas.png"][k]).max())
              for k in ("pose_mode", "shape_mean", "cam")}
-    box_diff = float(np.abs(card_boxes[0] - per_image_boxes).max())
-    log(f"[phase 5e] batched vs per-image driver with the keypoint detector "
+    box_diff = float(np.abs(card_boxes[0] - batch1_boxes).max())
+    log(f"[phase 5e] batch 2 vs batch 1 with the keypoint detector "
         f"on the card: box max abs diff {box_diff} px, outputs max abs "
         f"{diffs} (tol 1e-4)")
     if box_diff > 1e-4 or max(diffs.values()) > 1e-4:
-        raise AssertionError("[phase 5e] the batched driver's detector path "
-                             "differs from the per-image driver's")
+        raise AssertionError("[phase 5e] the detector path at batch 2 "
+                             "differs from batch 1's")
     return worst
 
 
 def phase_batched(workdir):
     """This slice's paths on the card: the batched --no_vis serving path
-    and the batched figures through the CLI, the per-image samples and
-    uncrop figures, both kernels on the two new renders' tables, uncropped
+    and the batched figures through the CLI, the samples and uncrop figures
+    at batch 1, both kernels on the two new renders' tables, uncropped
     photos through the detectors, and the batched path's timings.
 
     :return: dict of the readings for the kernels line
@@ -1552,7 +1554,7 @@ def phase_batched(workdir):
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
         IMAGENET_MEAN, IMAGENET_STD)
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
-        make_predict_core, predict_pose_mf_shape_gaussian_net)
+        make_predict_core, predict_folder_batched)
     from hierarchicalprobabilistic3dhuman_torch.utils.precision import bf16_apply
     import cv2
 
@@ -1574,7 +1576,7 @@ def phase_batched(workdir):
     # (a) both kernels against their plain versions on the new renders'
     # tables, as the path builds them.
     kwargs = build_predictor(build_parser().parse_args(
-        base + ["--save_dir", os.path.join(workdir, "per_image12")]))
+        base + ["--save_dir", os.path.join(workdir, "batch1_12")]))
     scenes, stack, hr = figure_scenes(kwargs, image_dir)
     readings["attr_err"] = readings["table_err"] = 0
     new_scenes = {}
@@ -1585,8 +1587,7 @@ def phase_batched(workdir):
         new_scenes[name] = (scene, covered)
     lap("phase 5a")
 
-    # (b) the serving path: no render, outputs.npz, the per-image driver's
-    # outputs.
+    # (b) the serving path: no render, outputs.npz, the outputs at batch 1.
     out_b = os.path.join(workdir, "no_vis")
     results, readings["launches"]["no_vis"] = run_path(
         "phase 5b", f"run_predict_torch.py --batch_size {BATCH} --no_vis on "
@@ -1602,19 +1603,19 @@ def phase_batched(workdir):
             or os.listdir(out_b) != ["outputs.npz"]):
         raise AssertionError(f"outputs.npz: {npz.files}, "
                              f"{npz['pose_mode'].shape}, {os.listdir(out_b)}")
-    per_image = predict_pose_mf_shape_gaussian_net(**kwargs)
+    batch1 = predict_folder_batched(batch_size=1, **kwargs)
 
-    def vs_per_image(tag, batched):
-        diffs = {k: max(float(np.abs(batched[f][k] - per_image[f][k]).max())
+    def vs_batch1(tag, batched):
+        diffs = {k: max(float(np.abs(batched[f][k] - batch1[f][k]).max())
                         for f in photos)
                  for k in ("pose_mode", "shape_mean", "cam")}
-        log(f"[{tag}] batched vs per-image driver on the card, max abs "
+        log(f"[{tag}] batched vs batch 1 on the card, max abs "
             f"{diffs} (tol 1e-4)")
         if max(diffs.values()) > 1e-4:
-            raise AssertionError(f"[{tag}] batched outputs differ from the "
-                                 f"per-image driver's")
+            raise AssertionError(f"[{tag}] batched outputs differ from "
+                                 f"batch 1's")
 
-    vs_per_image("phase 5b", results)
+    vs_batch1("phase 5b", results)
     lap("phase 5b")
 
     # (c) batched figures with the uncrop: one launch of each kernel a chunk.
@@ -1625,13 +1626,13 @@ def phase_batched(workdir):
         lambda: main(base + ["--save_dir", out_c, "--batch_size", str(BATCH),
                              "--visualise_uncropped"]), expect=chunks)
     check_results("phase 5c", results, photos)
-    vs_per_image("phase 5c", results)
+    vs_batch1("phase 5c", results)
     for f in photos:
         check_image(os.path.join(out_c, f), FIGURE_SHAPE)
         check_image(os.path.join(out_c, f[:-4] + "_uncrop.png"), shapes[f])
     lap("phase 5c")
 
-    # (d) the per-image samples and uncrop figures on one photo: two
+    # (d) the samples and uncrop figures on one photo at batch 1: two
     # launches of each kernel (the 6 views, the 18 sample meshes).
     one_dir = demo_folder(workdir, "demo1", photos[:1])
     out_d = os.path.join(workdir, "samples")
@@ -4432,7 +4433,7 @@ def main():
     pack_by_path = {**pack, **batched["pack"], **evaluation["pack"],
                     "train": training["pack"], "train_resnet50": resnet50["pack"],
                     "train_native": native["pack"]}
-    path_launches = {"per_image_3_photos": launches,
+    path_launches = {"batch1_3_photos": launches,
                      **{f"{path}_{'1_photo' if path == 'samples' else '12_photos'}":
                         counts for path, counts in batched["launches"].items()},
                      **evaluation["launches"],

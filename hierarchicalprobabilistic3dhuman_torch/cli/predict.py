@@ -4,11 +4,11 @@ python run_predict_torch.py --image_dir demo/ --save_dir out/ --cropped_images
 python run_predict_torch.py --image_dir photos/ --save_dir out/ --batch_size 8 --no_vis
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/cli/predict.py
-(run_predict :53, build_parser :248): per-image or batched predict, on
-cropped photos or on uncropped ones through the HRNet keypoint-bootstrap
-detector, with the uncrop and samples figures and a bfloat16 HRNet, plus
---device (default cuda; a run that asks for cuda and finds none fails), the
-figure size and the sample count. --pose_shape_weights and
+(run_predict :53, build_parser :248): one folder predict at any batch
+size, on cropped photos or on uncropped ones through the HRNet
+keypoint-bootstrap detector, with the uncrop and samples figures and a
+bfloat16 HRNet, plus --device (default cuda; a run that asks for cuda and
+finds none fails), the figure size and the sample count. --pose_shape_weights and
 --pose2D_hrnet_weights take a reference checkpoint (a torch file) or the
 JAX package's flax variables file, told apart by the content; without one
 the network is randomly initialised from seed 0. --svd_impl auto takes the
@@ -82,8 +82,7 @@ def build_predictor(args, mesh=None):
     """Models, config and options of the predict, from the flags (on a
     mesh, on this rank's device).
 
-    :return: keyword arguments shared by predict_pose_mf_shape_gaussian_net
-        and predict_folder_batched
+    :return: keyword arguments of predict_folder_batched
     """
     from hierarchicalprobabilistic3dhuman_torch.configs import (
         get_pose2d_hrnet_cfg_defaults, get_pose_shape_cfg_defaults)
@@ -187,19 +186,13 @@ def run_predict(args):
 
 
 def _run_predict(args, mesh):
-    """The batched folder driver for --batch_size > 1 or --no_vis, else the
-    per-image driver."""
+    """The folder driver, at --batch_size, with or without figures."""
     from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
-        predict_folder_batched, predict_pose_mf_shape_gaussian_net)
-    kwargs = build_predictor(args, mesh)
-    if args.batch_size > 1 or args.no_vis:
-        if args.visualise_samples:
-            print("NOTE: --visualise_samples is per-image only; ignored "
-                  "with --batch_size > 1 or --no_vis.")
-        return predict_folder_batched(batch_size=args.batch_size,
-                                      save_vis=not args.no_vis, **kwargs)
-    return predict_pose_mf_shape_gaussian_net(
-        visualise_samples=args.visualise_samples, **kwargs)
+        predict_folder_batched)
+    return predict_folder_batched(batch_size=args.batch_size,
+                                  save_vis=not args.no_vis,
+                                  visualise_samples=args.visualise_samples,
+                                  **build_predictor(args, mesh))
 
 
 def build_parser():
@@ -208,10 +201,9 @@ def build_parser():
         description="3D human shape/pose distribution prediction "
                     "(PyTorch/CUDA port; the flags of run_predict.py).")
     parser.add_argument("--image_dir", "-I", type=str, required=True,
-                        help="Directory of images to run prediction on. "
-                             "The batched driver also accepts pre-decoded "
-                             "uint8 HWC .npy files and .npz packs "
-                             "(data/pack_predict_inputs.py).")
+                        help="Directory of images to run prediction on; "
+                             "also pre-decoded uint8 HWC .npy files and "
+                             ".npz packs (data/pack_predict_inputs.py).")
     parser.add_argument("--save_dir", "-S", type=str, required=True,
                         help="Directory to save predictions/visualisations.")
     parser.add_argument("--pose_shape_weights", "-W3D", type=str, default=None,
@@ -255,13 +247,13 @@ def build_parser():
     parser.add_argument("--num_workers", type=int, default=0,
                         help="Unused; kept for CLI parity.")
     parser.add_argument("--batch_size", "-B", type=int, default=1,
-                        help="Images per batched HRNet + core call; > 1 "
-                             "groups the folder by resolution and decodes "
+                        help="Images per batched HRNet + core call; the "
+                             "folder is grouped by resolution and decoded "
                              "on a thread.")
     parser.add_argument("--no_vis", action="store_true",
-                        help="Batched driver without any render or figure; "
-                             "save pose/shape/cam/uncertainty to "
-                             "outputs.npz (the serving path).")
+                        help="No render or figure; save "
+                             "pose/shape/cam/uncertainty to outputs.npz "
+                             "(the serving path).")
     parser.add_argument("--bf16", action="store_true",
                         help="Run HRNet-W48 in bfloat16 (parameters and "
                              "activations; heatmaps in float32).")

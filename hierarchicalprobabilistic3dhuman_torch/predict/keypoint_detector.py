@@ -18,7 +18,7 @@ from the whole-frame pass, clusters them greedily into skeleton seeds (at
 most one peak per joint channel per cluster), refines each seed on its own
 and merges the results by box-IoU NMS.
 
-Both return the torchvision-style dict that predict_hrnet's
+Both return the torchvision-style dict that make_hrnet_batch_predictor's
 `object_detect_fn` interface expects ({boxes xyxy, labels, scores}).
 """
 

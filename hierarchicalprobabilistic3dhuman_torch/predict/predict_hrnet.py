@@ -2,12 +2,12 @@
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/predict/predict_hrnet.py
 (get_kp_locations_confs_from_heatmaps :24, select_centremost_person_box :40,
-_as_float_rgb :72, make_hrnet_predictor :89, make_hrnet_batch_predictor
-:168, predict_hrnet :258, ImageNet normalisation :20-21). The detector is
-an interface: any callable `image (3, H, W) float [0, 1] -> dict(boxes
-(N, 4) xyxy, labels (N,), scores (N,))`, such as the keypoint bootstrap
-detectors of predict/keypoint_detector.py, or None for the whole image
-(cropped inputs).
+_as_float_rgb :72, make_hrnet_batch_predictor :168, ImageNet normalisation
+:20-21); its per-image entry points (:89, :258) are this batch predictor on
+a batch of one. The detector is an interface: any callable `image (3, H,
+W) float [0, 1] -> dict(boxes (N, 4) xyxy, labels (N,), scores (N,))`,
+such as the keypoint bootstrap detectors of predict/keypoint_detector.py,
+or None for the whole image (cropped inputs).
 """
 
 import numpy as np
@@ -92,6 +92,9 @@ def make_hrnet_batch_predictor(hrnet, hrnet_config, device,
     (detector or whole image, selected on the host) and its aspect fix; then
     one 384x288 crop + normalise + HRNet + heatmap argmax for the batch.
 
+    :param hrnet: callable (B, 3, 384, 288) normalised -> (B, 17, 96, 72) on
+        `device`: a PoseHighResolutionNet in eval mode, or its bfloat16
+        wrapper (utils/precision.py)
     :return: predict_batch(images, object_detect_fn=None,
         object_detect_threshold=0.8) -> dict joints2D (B, 17, 2),
         joints2Dconfs (B, 17), cropped_image (B, 3, 384, 288), and numpy
@@ -112,8 +115,8 @@ def make_hrnet_batch_predictor(hrnet, hrnet_config, device,
             rgb = _as_float_rgb(images)
             B, _, H, W = rgb.shape
             centres = np.empty((B, 2), np.float32)
-            # Box sizes stay in host floats, as the per-image predictor returns
-            # them; the crop rounds them to float32.
+            # Box sizes stay in host floats, as JAX's per-image predictor
+            # returns them; the crop rounds them to float32.
             heights = np.empty((B,), np.float64)
             widths = np.empty((B,), np.float64)
             for i in range(B):
@@ -139,51 +142,3 @@ def make_hrnet_batch_predictor(hrnet, hrnet_config, device,
                     "bbox_heights": heights, "bbox_widths": widths}
 
     return predict_batch
-
-
-def make_hrnet_predictor(hrnet, hrnet_config, device, bbox_scale_factor=1.2):
-    """Per-image keypoint predictor: make_hrnet_batch_predictor on a batch of
-    one image.
-
-    :param hrnet: callable (B, 3, 384, 288) normalised -> (B, 17, 96, 72) on
-        `device`: a PoseHighResolutionNet in eval mode, or its bfloat16
-        wrapper (utils/precision.py)
-    :return: predict(image, object_detect_fn=None, object_detect_threshold=0.8)
-        -> dict joints2D (17, 2), joints2Dconfs (17,), cropped_image
-        (3, 384, 288) [0, 1], bbox_centre (2,) numpy, bbox_height,
-        bbox_width; `image` is uint8 (H, W, 3) RGB numpy, or a tensor of
-        (H, W, 3) uint8 or (3, H, W) float [0, 1]
-    """
-    predict_batch = make_hrnet_batch_predictor(
-        hrnet, hrnet_config, device, bbox_scale_factor=bbox_scale_factor)
-
-    def predict(image, object_detect_fn=None, object_detect_threshold=0.8):
-        if isinstance(image, np.ndarray):
-            image = np.ascontiguousarray(image)
-        out = predict_batch(torch.as_tensor(image, device=device)[None],
-                            object_detect_fn=object_detect_fn,
-                            object_detect_threshold=object_detect_threshold)
-        return {"joints2D": out["joints2D"][0],
-                "joints2Dconfs": out["joints2Dconfs"][0],
-                "cropped_image": out["cropped_image"][0],
-                "bbox_centre": out["bbox_centres"][0],
-                "bbox_height": float(out["bbox_heights"][0]),
-                "bbox_width": float(out["bbox_widths"][0])}
-
-    return predict
-
-
-def predict_hrnet(hrnet, hrnet_config, image, device, object_detect_fn=None,
-                  object_detect_threshold=0.8, bbox_scale_factor=1.2):
-    """Person box -> crop to 384x288 -> HRNet heatmaps -> 2D joints, for one
-    image: a one-shot make_hrnet_predictor (nothing is compiled, so nothing
-    is cached).
-
-    :param image: see make_hrnet_predictor
-    :return: dict joints2D (17, 2), joints2Dconfs (17,), cropped_image
-        (3, 384, 288), bbox_centre (2,), bbox_height, bbox_width
-    """
-    predictor = make_hrnet_predictor(hrnet, hrnet_config, device,
-                                     bbox_scale_factor=bbox_scale_factor)
-    return predictor(image, object_detect_fn=object_detect_fn,
-                     object_detect_threshold=object_detect_threshold)

@@ -2,14 +2,14 @@
 
 Counterpart of hierarchicalprobabilistic3dhuman_tpu/predict/
 predict_pose_mf_shape_gaussian_net.py (jet_colormap :61,
-build_proxy_representation :77, make_predict_core :99, the per-image driver
-:265-463 with its figure, uncrop composite and samples figure,
-_prefetch_images :466, predict_folder_batched :521). Per image: HRNet
-keypoints, 256^2 crop, Canny + Gaussian joint heatmaps (the 18-channel
-proxy), the distribution predictor, SMPL mode and T-pose meshes, per-vertex
-uncertainty from pose samples, and, with figures on, jet colours and ONE
-batched render of the 6 views per image through the rasterizer kernel,
-composited over the crop.
+build_proxy_representation :77, make_predict_core :99, the figure, uncrop
+composite and samples figure of its per-image driver :265-463,
+_prefetch_images :466, predict_folder_batched :521), with one folder driver
+for every batch size. Per image: HRNet keypoints, 256^2 crop, Canny +
+Gaussian joint heatmaps (the 18-channel proxy), the distribution predictor,
+SMPL mode and T-pose meshes, per-vertex uncertainty from pose samples, and,
+with figures on, jet colours and ONE batched render of the 6 views per
+image through the rasterizer kernel, composited over the crop.
 
 On a parallel Mesh of the "sample" axis alone (JAX's cli/predict.py:194-202
 puts every device there) every rank runs the whole path on every image and
@@ -30,7 +30,7 @@ import torch
 
 from hierarchicalprobabilistic3dhuman_torch.ops.resample import affine_resample
 from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
-    make_hrnet_batch_predictor, make_hrnet_predictor)
+    make_hrnet_batch_predictor)
 from hierarchicalprobabilistic3dhuman_torch.renderers.textured_iuv_renderer import (
     TexturedIUVRenderer)
 from hierarchicalprobabilistic3dhuman_torch.runtime.profiling import count, span
@@ -259,7 +259,7 @@ def make_predict_core(pose_shape_model, pose_shape_cfg, smpl_model,
 def samples_views(verts_samples, joints_samples, proxy, cam_wp, verts_mode,
                   verts_rot90, pred_cam_t, pred_scale):
     """The meshes of the samples figure for one image (the core's outputs
-    with batch 1), stacked for ONE render as six_views stacks the figure's:
+    sliced to batch 1), stacked for ONE render as six_views stacks the figure's:
     the mode mesh and the SAMPLES_SHOWN sample meshes of least 2D joint
     error, from the front at the predicted camera, then the same turned 90
     degrees at the fixed camera, all grey.
@@ -357,7 +357,7 @@ def _figure(cropped, proxy, front, views, wh):
 
 
 def _proxy_with_joints(proxy_sum, cropped_joints2D, confs, proxy_size, wh):
-    """The per-image figure's proxy panel: the summed proxy with the joints
+    """The figure's proxy panel: the summed proxy with the joints
     and their confidences drawn on it (cv2)."""
     proxy_np = cv2.resize(np.stack([proxy_sum] * 3, axis=-1), (wh, wh))
     proxy_u8 = np.clip(proxy_np * 255, 0, 255).astype(np.uint8)
@@ -395,105 +395,6 @@ def _result(out, i):
             "shape_mean": out["shape_mean"][i],
             "cam": out["cam"][i],
             "per_vertex_uncertainty": out["per_vertex_3Dvar"][i]}
-
-
-def predict_pose_mf_shape_gaussian_net(pose_shape_model, pose_shape_cfg,
-                                       smpl_model, hrnet, hrnet_cfg,
-                                       edge_detect_model, image_dir, save_dir,
-                                       device, object_detect_fn=None,
-                                       joints2Dvisib_threshold=0.75,
-                                       visualise_wh=512,
-                                       visualise_uncropped=True,
-                                       visualise_samples=False,
-                                       num_uncertainty_samples=50,
-                                       mesh=None):
-    """Run prediction on every .jpg/.png in image_dir, one image at a time,
-    and write the 2 x 4 figure per image to save_dir, with
-    `visualise_uncropped` the front render pasted into the photo
-    (<name>_uncrop.png) and with `visualise_samples` the 3 x 6 samples
-    figure (<name>_samples.png). The sampler's draws come from a generator
-    seeded with 0.
-
-    :param hrnet: callable (B, 3, 384, 288) -> (B, 17, 96, 72) on `device`
-    :param object_detect_fn: optional person detector (see predict_hrnet);
-        None takes each photo whole (cropped inputs)
-    :param mesh: optional parallel Mesh of the "sample" axis alone: the
-        uncertainty samples split over its ranks; rank 0 alone renders and
-        writes
-    :return: {fname: dict pose_mode (23, 3, 3), shape_mean (10,), cam (3,),
-        per_vertex_uncertainty (6890,)} as numpy
-    """
-    main = _check_sample_mesh(mesh)
-    os.makedirs(save_dir, exist_ok=True)
-    renderer = TexturedIUVRenderer(device, img_wh=visualise_wh,
-                                   projection_type="orthographic",
-                                   render_rgb=True)
-    hrnet_predictor = make_hrnet_predictor(
-        hrnet, hrnet_cfg, device,
-        bbox_scale_factor=pose_shape_cfg.DATA.BBOX_SCALE_FACTOR)
-    core = make_predict_core(
-        pose_shape_model, pose_shape_cfg, smpl_model, edge_detect_model,
-        renderer, hrnet_cfg, joints2Dvisib_threshold=joints2Dvisib_threshold,
-        num_uncertainty_samples=num_uncertainty_samples, render_vis=main,
-        mesh=mesh)
-    generator = torch.Generator(device=device).manual_seed(0)
-    proxy_size = pose_shape_cfg.DATA.PROXY_REP_SIZE
-    wh = visualise_wh
-
-    results = {}
-    for image_fname in sorted(f for f in os.listdir(image_dir)
-                              if f.endswith((".jpg", ".png"))):
-        image_bgr = cv2.imread(os.path.join(image_dir, image_fname))
-        if image_bgr is None:
-            raise ValueError(f"{image_fname}: cv2.imread failed")
-        orig_image = cv2.cvtColor(image_bgr, cv2.COLOR_BGR2RGB)
-        hrnet_output = hrnet_predictor(
-            orig_image, object_detect_fn=object_detect_fn,
-            object_detect_threshold=pose_shape_cfg.DATA.BBOX_THRESHOLD)
-        out = core(hrnet_output["cropped_image"][None],
-                   hrnet_output["joints2D"][None],
-                   hrnet_output["joints2Dconfs"][None], generator=generator)
-        if not main:
-            results[image_fname] = _result({k: out[k].cpu().numpy() for k in (
-                "pose_rotmats_mode", "shape_mean", "cam", "per_vertex_3Dvar")}, 0)
-            continue
-
-        host = {k: out[k].cpu().numpy() for k in (
-            "front", "rgb_views", "cropped_vis", "cropped_joints2D",
-            "pose_rotmats_mode", "shape_mean", "cam", "per_vertex_3Dvar")}
-        proxy = _proxy_with_joints(
-            out["proxy"][0].sum(dim=0).cpu().numpy(), host["cropped_joints2D"][0],
-            hrnet_output["joints2Dconfs"].cpu().numpy(), proxy_size, wh)
-        vis_save_path = os.path.join(save_dir, image_fname)
-        _write_rgb(vis_save_path, _figure(
-            host["cropped_vis"][0].transpose(1, 2, 0), proxy,
-            host["front"][0].transpose(1, 2, 0), host["rgb_views"][0], wh))
-
-        if visualise_uncropped:
-            bbox_whs = (max(hrnet_output["bbox_height"], hrnet_output["bbox_width"])
-                        * pose_shape_cfg.DATA.BBOX_SCALE_FACTOR)
-            unc = uncrop_front(
-                out["rgb_views"], out["iuv_views"],
-                torch.as_tensor(hrnet_output["bbox_centre"], device=device)[None],
-                torch.tensor([bbox_whs], dtype=torch.float32, device=device),
-                orig_image.shape[:2])
-            cv2.imwrite(os.path.splitext(vis_save_path)[0] + "_uncrop.png",
-                        _uncrop_composite(unc["rgb"][0].cpu().numpy(),
-                                          unc["iuv"][0, 0].cpu().numpy(),
-                                          orig_image))
-
-        if visualise_samples:
-            front_samples, rot_samples = samples_core(
-                renderer, out["verts_samples"], out["joints_samples"],
-                out["proxy"], out["cam"], out["verts_mode"], out["verts_rot90"],
-                out["cropped_vis"], out["pred_cam_t"], out["pred_scale"])
-            _write_rgb(os.path.splitext(vis_save_path)[0] + "_samples.png",
-                       _samples_figure(
-                           front_samples.permute(0, 2, 3, 1).cpu().numpy(),
-                           rot_samples.cpu().numpy(), wh))
-
-        results[image_fname] = _result(host, 0)
-    return results
 
 
 def _prefetch_images(image_dir, fnames):
@@ -634,9 +535,10 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
                            save_dir, device, batch_size=8,
                            object_detect_fn=None, joints2Dvisib_threshold=0.75,
                            visualise_wh=512, save_vis=True,
-                           visualise_uncropped=True,
+                           visualise_uncropped=True, visualise_samples=False,
                            num_uncertainty_samples=50, mesh=None):
-    """Folder prediction with B images per batched HRNet and core call.
+    """Folder prediction with B images per batched HRNet and core call, for
+    every batch size (1 included) and with or without figures.
 
       * images are decoded on a thread and grouped by resolution into
         chunks of at most `batch_size` (the last of a resolution may be
@@ -647,8 +549,10 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
         an event of their own;
       * with save_vis=False no render is made, and the distribution and
         uncertainty outputs go to save_dir/outputs.npz (the serving path);
-        with save_vis the 2 x 4 figure of each image is written and, with
-        `visualise_uncropped`, its front render pasted into the photo;
+        with save_vis the 2 x 4 figure of each image is written, with
+        `visualise_uncropped` its front render pasted into the photo
+        (<name>_uncrop.png) and with `visualise_samples` the 3 x 6 samples
+        figure (<name>_samples.png);
       * with a parallel `mesh` of the "sample" axis alone, the uncertainty
         samples split over its ranks; rank 0 alone renders and writes.
 
@@ -672,6 +576,7 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
         bbox_scale_factor=pose_shape_cfg.DATA.BBOX_SCALE_FACTOR)
     generator = torch.Generator(device=device).manual_seed(0)
     scale_factor = pose_shape_cfg.DATA.BBOX_SCALE_FACTOR
+    proxy_size = pose_shape_cfg.DATA.PROXY_REP_SIZE
     wh = visualise_wh
 
     results = {}
@@ -692,15 +597,28 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
         if save_vis:
             wanted.update(front=out["front"], rgb_views=out["rgb_views"],
                           cropped_vis=out["cropped_vis"],
-                          proxy=out["proxy"].sum(dim=1))
+                          proxy=out["proxy"].sum(dim=1),
+                          cropped_joints2D=out["cropped_joints2D"],
+                          joints2Dconfs=hr["joints2Dconfs"])
             if visualise_uncropped:
-                whs = np.maximum(hr["bbox_heights"], hr["bbox_widths"]
-                                 ).astype(np.float32) * scale_factor
+                # The box side in host float64, then float32.
+                whs = (np.maximum(hr["bbox_heights"], hr["bbox_widths"])
+                       * scale_factor).astype(np.float32)
                 unc = uncrop_front(
                     out["rgb_views"], out["iuv_views"],
                     torch.as_tensor(hr["bbox_centres"], device=device),
                     torch.as_tensor(whs, device=device), images.shape[1:3])
                 wanted.update(unc_rgb=unc["rgb"], unc_seg=unc["iuv"][:, 0])
+            if visualise_samples:
+                # Each image's samples figure from its own slices.
+                fronts, rots = zip(*(samples_core(renderer, *(
+                    out[k][i:i + 1] for k in (
+                        "verts_samples", "joints_samples", "proxy", "cam",
+                        "verts_mode", "verts_rot90", "cropped_vis",
+                        "pred_cam_t", "pred_scale")))
+                    for i in range(images.shape[0])))
+                wanted.update(front_samples=torch.stack(fronts),
+                              rot_samples=torch.stack(rots))
         return _Fetch(wanted)
 
     def materialize(items, fetch):
@@ -718,7 +636,8 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
         if not save_vis:
             return
         for i, (fname, orig_image) in enumerate(items):
-            proxy = cv2.resize(np.stack([out["proxy"][i]] * 3, axis=-1), (wh, wh))
+            proxy = _proxy_with_joints(out["proxy"][i], out["cropped_joints2D"][i],
+                                       out["joints2Dconfs"][i], proxy_size, wh)
             path = os.path.join(save_dir, fname)
             _write_rgb(path, _figure(
                 out["cropped_vis"][i].transpose(1, 2, 0), proxy,
@@ -727,6 +646,11 @@ def predict_folder_batched(pose_shape_model, pose_shape_cfg, smpl_model,
                 cv2.imwrite(os.path.splitext(path)[0] + "_uncrop.png",
                             _uncrop_composite(out["unc_rgb"][i],
                                               out["unc_seg"][i], orig_image))
+            if visualise_samples:
+                _write_rgb(os.path.splitext(path)[0] + "_samples.png",
+                           _samples_figure(
+                               out["front_samples"][i].transpose(0, 2, 3, 1),
+                               out["rot_samples"][i], wh))
 
     pending = None
     for items, stack in _stream_chunks(image_dir, fnames, batch_size,

@@ -1,5 +1,5 @@
 """The port's batched folder predict vs the JAX package's, and vs the
-port's own per-image driver.
+port's own folder driver at batch 1.
 
 The setup of tests/test_predict_driver.py::
 test_batched_folder_predict_matches_per_image: a stub HRNet (one bright
@@ -7,7 +7,7 @@ heatmap pixel per joint), the predictor at embed width 64 with the JAX
 weights carried across (models/weights.py), synthetic SMPL, proxy 32, 4
 samples, batch 2, two resolution groups (three 128^2 photos, so a partial
 chunk, and one 96^2). Tolerance: pose mode, shape mean and cam within 1e-5
-of JAX's and of the per-image driver's (the uncertainty comes from other
+of JAX's and of the port's at batch 1 (the uncertainty comes from other
 draws in each, so only its shape and finiteness are held); pre-decoded
 inputs give the PNG run's outputs exactly. Uncropped photos go through
 the single-person keypoint detector on the centroid stub of
@@ -50,7 +50,7 @@ from hierarchicalprobabilistic3dhuman_torch.models.weights import (
     flax_to_torch_predictor)
 from hierarchicalprobabilistic3dhuman_torch.predict import keypoint_detector as tkd
 from hierarchicalprobabilistic3dhuman_torch.predict.predict_pose_mf_shape_gaussian_net import (
-    predict_folder_batched, predict_pose_mf_shape_gaussian_net)
+    predict_folder_batched)
 
 from test_torch_detector import _blob, j_centroid_stub, t_centroid_stub
 
@@ -107,7 +107,7 @@ def _photos(directory, sizes, seed):
 @pytest.fixture(scope="module")
 def folder_runs(models, tmp_path_factory):
     """JAX's and the port's batched --no_vis runs on one folder, and the
-    port's per-image run on it."""
+    port's run on it at batch 1 with figures."""
     root = tmp_path_factory.mktemp("batched")
     image_dir = _photos(root / "imgs", {"a0.png": (128, 128),
                                         "a1.png": (128, 128),
@@ -126,9 +126,9 @@ def folder_runs(models, tmp_path_factory):
     port = predict_folder_batched(
         image_dir=str(image_dir), save_dir=str(root / "out_port"),
         batch_size=2, save_vis=False, **models["port"])
-    per_image = predict_pose_mf_shape_gaussian_net(
+    per_image = predict_folder_batched(
         image_dir=str(image_dir), save_dir=str(root / "out_single"),
-        visualise_uncropped=False, **models["port"])
+        batch_size=1, visualise_uncropped=False, **models["port"])
     return {"jax": ref, "port": port, "per_image": per_image, "root": root,
             "image_dir": image_dir}
 
@@ -141,8 +141,8 @@ def test_batched_matches_jax_and_per_image(folder_runs, key):
     for fname in sorted(port):
         vs_jax = np.abs(port[fname][key] - np.asarray(ref[fname][key])).max()
         vs_single = np.abs(port[fname][key] - single[fname][key]).max()
-        print(f"{fname} {key}: max abs diff vs JAX {vs_jax:.3e}, vs the "
-              f"per-image driver {vs_single:.3e} (tol 1e-5)")
+        print(f"{fname} {key}: max abs diff vs JAX {vs_jax:.3e}, vs batch "
+              f"1 {vs_single:.3e} (tol 1e-5)")
         assert vs_jax <= 1e-5 and vs_single <= 1e-5
 
 
@@ -286,15 +286,18 @@ def test_decode_error_reaches_the_caller(models, tmp_path):
     assert failure and "bad.png" in failure[0]
 
 
-def test_figures_on_writes_figure_and_uncrop(models, tmp_path):
-    """save_vis with visualise_uncropped: the 2 x 4 figure and the
-    uncropped composite, of the photo's size, for each photo."""
+@pytest.mark.parametrize("batch_size", [1, 2])
+def test_figures_on_writes_figure_and_uncrop(models, tmp_path, batch_size):
+    """save_vis with visualise_uncropped and visualise_samples: the 2 x 4
+    figure, the uncropped composite, of the photo's size, and the 3 x 6
+    samples figure, for each photo."""
     d = _photos(tmp_path / "imgs", {"im0.png": (100, 90), "im1.png": (100, 90),
                                     "im2.png": (70, 80)}, seed=4)
     save_dir = tmp_path / "out"
     results = predict_folder_batched(
-        image_dir=str(d), save_dir=str(save_dir), batch_size=2, save_vis=True,
-        visualise_uncropped=True, **models["port"])
+        image_dir=str(d), save_dir=str(save_dir), batch_size=batch_size,
+        save_vis=True, visualise_uncropped=True, visualise_samples=True,
+        **models["port"])
     assert sorted(results) == ["im0.png", "im1.png", "im2.png"]
     for fname, hw in (("im0", (100, 90)), ("im1", (100, 90)), ("im2", (70, 80))):
         fig = cv2.imread(str(save_dir / f"{fname}.png"))
@@ -306,3 +309,5 @@ def test_figures_on_writes_figure_and_uncrop(models, tmp_path):
         # the body is pasted over part of the photo, the rest is the photo
         same = (unc == photo).all(axis=-1).mean()
         assert 0.2 < same < 1.0, same
+        samples = cv2.imread(str(save_dir / f"{fname}_samples.png"))
+        assert samples is not None and samples.shape == (3 * WH, 6 * WH, 3)

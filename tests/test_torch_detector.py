@@ -26,7 +26,7 @@ from hierarchicalprobabilistic3dhuman_tpu.configs import (
     get_pose2d_hrnet_cfg_defaults as j_hrnet_cfg)
 from hierarchicalprobabilistic3dhuman_tpu.predict import keypoint_detector as jkd
 from hierarchicalprobabilistic3dhuman_tpu.predict.predict_hrnet import (
-    predict_hrnet as j_predict_hrnet,
+    predict_hrnet as j_hrnet_single,
     select_centremost_person_box as j_select_box)
 
 from hierarchicalprobabilistic3dhuman_torch.cli.predict import (
@@ -40,7 +40,7 @@ from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net im
 from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
 from hierarchicalprobabilistic3dhuman_torch.predict import keypoint_detector as tkd
 from hierarchicalprobabilistic3dhuman_torch.predict.predict_hrnet import (
-    predict_hrnet, select_centremost_person_box)
+    make_hrnet_batch_predictor, select_centremost_person_box)
 from hierarchicalprobabilistic3dhuman_torch.utils.precision import bf16_apply
 
 # Several test files run at once, one per worker: keep torch to 2 threads
@@ -254,33 +254,36 @@ def test_select_centremost_person_box_matches(case):
 
 
 def test_predict_hrnet_matches_jax():
-    """predict_hrnet on an uncropped scene, its box from the single-person
-    detector: the box exactly, joints and confidences exactly, the crop
-    within 1e-5, against JAX's predict_hrnet with the same stubs."""
+    """make_hrnet_batch_predictor on a batch of one uncropped scene, its box
+    from the single-person detector: the box exactly, joints and
+    confidences exactly, the crop within 1e-5, against JAX's predict_hrnet
+    with the same stubs."""
     img = _scene("blob")
-    ref = j_predict_hrnet(
+    ref = j_hrnet_single(
         j_centroid_stub(spread=2), j_hrnet_cfg(), jnp.asarray(img),
         object_detect_fn=jkd.make_keypoint_bootstrap_detector(
             j_centroid_stub(), j_hrnet_cfg()))
-    port = predict_hrnet(
-        t_centroid_stub(spread=2), HRNET_CFG, torch.from_numpy(img), "cpu",
+    port = make_hrnet_batch_predictor(t_centroid_stub(spread=2), HRNET_CFG, "cpu")(
+        torch.from_numpy(img)[None],
         object_detect_fn=tkd.make_keypoint_bootstrap_detector(
             t_centroid_stub(), HRNET_CFG, "cpu"))
-    crop_diff = np.abs(port["cropped_image"].numpy()
+    centre, height, width = (port["bbox_centres"][0],
+                             float(port["bbox_heights"][0]),
+                             float(port["bbox_widths"][0]))
+    crop_diff = np.abs(port["cropped_image"][0].numpy()
                        - np.asarray(ref["cropped_image"])).max()
-    print(f"predict_hrnet: box {port['bbox_centre'].tolist()} "
-          f"{port['bbox_height']} x {port['bbox_width']} (JAX "
+    print(f"predict_hrnet: box {centre.tolist()} {height} x {width} (JAX "
           f"{np.asarray(ref['bbox_centre']).tolist()} {ref['bbox_height']} x "
           f"{ref['bbox_width']}); crop max abs diff {crop_diff:.3e} (tol 1e-5)")
     # The detector found the blob: a box smaller than the 512 x 384 frame.
-    assert port["bbox_height"] < 512 and port["bbox_width"] < 384
-    np.testing.assert_array_equal(port["bbox_centre"], np.asarray(ref["bbox_centre"]))
-    assert (port["bbox_height"], port["bbox_width"]) == (
-        ref["bbox_height"], ref["bbox_width"])
-    np.testing.assert_array_equal(port["joints2D"].numpy(), np.asarray(ref["joints2D"]))
-    np.testing.assert_array_equal(port["joints2Dconfs"].numpy(),
+    assert height < 512 and width < 384
+    np.testing.assert_array_equal(centre, np.asarray(ref["bbox_centre"]))
+    assert (height, width) == (ref["bbox_height"], ref["bbox_width"])
+    np.testing.assert_array_equal(port["joints2D"][0].numpy(),
+                                  np.asarray(ref["joints2D"]))
+    np.testing.assert_array_equal(port["joints2Dconfs"][0].numpy(),
                                   np.asarray(ref["joints2Dconfs"]))
-    assert port["cropped_image"].shape == (3, 384, 288) and crop_diff <= 1e-5
+    assert port["cropped_image"].shape == (1, 3, 384, 288) and crop_diff <= 1e-5
 
 
 def test_cli_detector_choices(capsys, tmp_path, monkeypatch):
