@@ -67,7 +67,15 @@ Phases (any failure exits non-zero before the final line):
      profile, the predictor with each 3x3 SVD, the kernels at the two eval
      shapes beside their bounds; (f) the LAPACK-sign SVD's kernel against
      its plain version on the card and against the CPU, timed a call at the
-     head's shapes (8 x 2, 8 x 3, 8 x 5 matrices) and at 2,000;
+     head's shapes (8 x 2, 8 x 3, 8 x 5 matrices) and at 2,000; (g) the
+     Jacobi SVD's kernels (svd3_jacobi and its backward): the forward
+     against the torch ops on the card bit for bit on 120,000 matrices in
+     float32 and float64; at the head's train and predict shapes and at
+     Procrustes' 8, the backward held to the gradient contract (float64
+     autograd through the torch ops) and the forward and forward +
+     backward timed beside their bounds and the torch ops; the Jacobi
+     head's two CUDA graphs at B = 72 on the card's clock with the kernels
+     and with the torch ops;
   7. training at full width (ResNet-18 on the 256^2 proxy, EMBED_DIM 256,
      batch 72, 8 samples in stage 2, random weights, synthetic SMPL and the
      synthetic fallback dataset's poses, backgrounds and 1200 x 800 uint8
@@ -645,7 +653,8 @@ def box_tests(face_boxes):
 def same_bits(a, b):
     """Elementwise: a and b hold the same bits, a NaN equal to any NaN."""
     if a.is_floating_point():
-        return (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+        bits = {4: torch.int32, 8: torch.int64}[a.element_size()]
+        return (a.view(bits) == b.view(bits)) | (a.isnan() & b.isnan())
     return a == b
 
 
@@ -793,11 +802,13 @@ HEAD_GRAPH_COUNTS = {"replays": "pose_head.graph_replays",
 
 
 def kernel_launches(reset=False):
-    """The three kernels' launch counts and the Jacobi head's graph counts,
-    each set to 0 first if `reset`.
+    """The kernels' launch counts from the host (svd3_jacobi's forward and
+    backward apart) and the Jacobi head's graph counts, each set to 0 first
+    if `reset`.
 
-    :return: {"rasterize", "pack_face_tables", "svd3_gesdd": count,
-        "pose_head.graph_replays", ".graph_captures", ".graph_eager": count}
+    :return: {"rasterize", "pack_face_tables", "svd3_gesdd", "svd3_jacobi",
+        "svd3_jacobi_bwd": count, "pose_head.graph_replays",
+        ".graph_captures", ".graph_eager": count}
     """
     from hierarchicalprobabilistic3dhuman_torch.models.graphed_head import (
         graphed_head)
@@ -805,25 +816,39 @@ def kernel_launches(reset=False):
         svd3x3_gesdd_cuda)
     from hierarchicalprobabilistic3dhuman_torch.ops.rasterizer_cuda import (
         pack_face_tables_cuda, rasterize_packed_cuda)
-    counters = {"rasterize": rasterize_packed_cuda,
-                "pack_face_tables": pack_face_tables_cuda,
-                "svd3_gesdd": svd3x3_gesdd_cuda}
+    from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import svd3x3_jacobi_cuda
+    counters = {"rasterize": (rasterize_packed_cuda, "launches"),
+                "pack_face_tables": (pack_face_tables_cuda, "launches"),
+                "svd3_gesdd": (svd3x3_gesdd_cuda, "launches"),
+                "svd3_jacobi": (svd3x3_jacobi_cuda, "launches"),
+                "svd3_jacobi_bwd": (svd3x3_jacobi_cuda, "backward_launches")}
     if reset:
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         for attr in HEAD_GRAPH_COUNTS:
             setattr(graphed_head, attr, 0)
-    return {**{name: fn.launches for name, fn in counters.items()},
+    return {**{name: getattr(fn, attr) for name, (fn, attr) in counters.items()},
             **{key: getattr(graphed_head, attr)
                for attr, key in HEAD_GRAPH_COUNTS.items()}}
 
 
-def run_path(tag, what, fn, expect, gesdd=0):
+def procrustes_alignments(metrics):
+    """Procrustes alignments a batch or train step makes on the card for
+    the tracked metrics (one svd3x3 call each: the PA metrics and, in
+    evaluation, their samples' minima)."""
+    return sum("-PA" in m for m in metrics)
+
+
+def run_path(tag, what, fn, expect, gesdd=0, head=0, procrustes=0, backward=0):
     """Drive one path with the kernels' launch counts set to 0 just before
-    it and read just after: the rasterizer's two must each equal `expect`,
-    svd3_gesdd's `gesdd` (HEAD_SVD_CALLS a predictor call with the
-    LAPACK-sign head, 0 with the Jacobi one); the Jacobi head's graph
-    counts are logged beside them.
+    it and read just after, each held to its exact expected count: the
+    rasterizer's two `expect`, svd3_gesdd's `gesdd` (HEAD_SVD_CALLS a
+    predictor call with the LAPACK-sign head, 0 with the Jacobi one); the
+    Jacobi head's calls on the card (its eager calls and replays) `head`;
+    svd3_jacobi's forward from the host HEAD_SVD_CALLS each of the head's
+    eager calls and captures (a replay launches from its graph) plus
+    `procrustes`, a launch each Procrustes alignment on the card; its
+    backward's `backward`.
 
     :return: fn's result, the counts
     """
@@ -833,12 +858,17 @@ def run_path(tag, what, fn, expect, gesdd=0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
-    want = {"rasterize": expect, "pack_face_tables": expect, "svd3_gesdd": gesdd}
+    host_head = (launches["pose_head.graph_eager"]
+                 + launches["pose_head.graph_captures"])
+    want = {"rasterize": expect, "pack_face_tables": expect, "svd3_gesdd": gesdd,
+            "svd3_jacobi": HEAD_SVD_CALLS * host_head + procrustes,
+            "svd3_jacobi_bwd": backward}
+    calls = launches["pose_head.graph_eager"] + launches["pose_head.graph_replays"]
     log(f"[{tag}] {what}: {wall:.2f} s; kernel launches {launches}, "
-        f"expected {want}")
-    if {k: launches[k] for k in want} != want:
-        raise AssertionError(f"{what}: expected kernel launches {want}, got "
-                             f"{launches}")
+        f"expected {want} and {head} Jacobi head calls on the card")
+    if {k: launches[k] for k in want} != want or calls != head:
+        raise AssertionError(f"{what}: expected kernel launches {want} and "
+                             f"{head} head calls, got {launches}")
     return result, launches
 
 
@@ -882,7 +912,7 @@ def phase_main_path(workdir):
             "--cropped_images", "--device", "cuda"]
     results, launches = run_path(
         "phase 3", f"run_predict_torch.py on {len(DEMO_PHOTOS)} demo photos",
-        lambda: main(argv), expect=len(DEMO_PHOTOS))
+        lambda: main(argv), expect=len(DEMO_PHOTOS), head=len(DEMO_PHOTOS))
     check_results("phase 3", results, DEMO_PHOTOS)
     for fname, res in results.items():
         fig = check_image(os.path.join(save_dir, fname), (1024, 2048, 3))
@@ -1498,7 +1528,8 @@ def phase_detector(workdir):
         results, _ = run_path(
             "phase 5e", f"run_predict_torch.py --detector {kind} "
             f"--visualise_uncropped on a {CANVAS_HW[1]}x{CANVAS_HW[0]} photo",
-            lambda: predict_folder_batched(batch_size=1, **kwargs), expect=1)
+            lambda: predict_folder_batched(batch_size=1, **kwargs), expect=1,
+            head=1)
         check_results("phase 5e", results, ["canvas.png"])
         check_image(os.path.join(save_dir, "canvas.png"), FIGURE_SHAPE)
         check_image(os.path.join(save_dir, "canvas_uncrop.png"),
@@ -1526,7 +1557,7 @@ def phase_detector(workdir):
         lambda: predict_folder_batched(
             **dict(built["cuda"], object_detect_fn=recorded,
                    save_dir=os.path.join(workdir, "canvas_batched")),
-            batch_size=2, save_vis=False), expect=0)
+            batch_size=2, save_vis=False), expect=0, head=1)
     check_results("phase 5e", batched, ["canvas.png"])
     diffs = {k: float(np.abs(batched["canvas.png"][k]
                              - batch1["canvas.png"][k]).max())
@@ -1593,7 +1624,7 @@ def phase_batched(workdir):
         "phase 5b", f"run_predict_torch.py --batch_size {BATCH} --no_vis on "
         f"{len(photos)} demo photos",
         lambda: main(base + ["--save_dir", out_b, "--batch_size", str(BATCH),
-                             "--no_vis"]), expect=0)
+                             "--no_vis"]), expect=0, head=chunks)
     check_results("phase 5b", results, photos)
     npz = np.load(os.path.join(out_b, "outputs.npz"))
     if (npz.files != ["fnames", "pose_mode", "shape_mean", "cam",
@@ -1624,7 +1655,8 @@ def phase_batched(workdir):
         "phase 5c", f"run_predict_torch.py --batch_size {BATCH} "
         f"--visualise_uncropped on {len(photos)} demo photos",
         lambda: main(base + ["--save_dir", out_c, "--batch_size", str(BATCH),
-                             "--visualise_uncropped"]), expect=chunks)
+                             "--visualise_uncropped"]), expect=chunks,
+        head=chunks)
     check_results("phase 5c", results, photos)
     vs_batch1("phase 5c", results)
     for f in photos:
@@ -1642,7 +1674,7 @@ def phase_batched(workdir):
         lambda: main(["--image_dir", one_dir, "--save_dir", out_d,
                       "--cropped_images", "--device", "cuda",
                       "--visualise_samples", "--visualise_uncropped"]),
-        expect=2)
+        expect=2, head=1)
     check_results("phase 5d", results, photos[:1])
     stem = os.path.join(out_d, photos[0][:-4])
     check_image(stem + ".png", FIGURE_SHAPE)
@@ -1741,6 +1773,10 @@ def phase_batched(workdir):
 # the demo photos of 512^2 that make the synthetic datasets' frames.
 EVAL_BATCH = 8
 HEAD_SVD_CALLS = 8      # the pose head's depth groups, one 3x3 SVD call each
+# svd3_jacobi_bwd's launches from the host in a training run: the train
+# steps' head key's warm-up and its backward graph's capture (the replays
+# launch from the graph; val steps take no backward).
+TRAIN_SVD_BACKWARD = 2 * HEAD_SVD_CALLS
 EVAL_SAMPLES = 10
 # The proxy and render size of the eval step's card-vs-CPU check.
 CARD_VS_CPU_WH = 32
@@ -1941,7 +1977,8 @@ def phase_eval(workdir, device):
             lambda: main(eval_argv("ssp3d", root, weights, save, batch,
                                    str(device))),
             expect=2 * frames // batch,
-            gesdd=HEAD_SVD_CALLS * frames // batch)
+            gesdd=HEAD_SVD_CALLS * frames // batch,
+            procrustes=procrustes_alignments(SSP3D_METRICS) * frames // batch)
         check_eval_outputs("phase 6b", metrics, SSP3D_METRICS, save, frames)
         readings["launches"][f"eval_ssp3d_{frames}_frames_b{batch}"] = launches
     lap("phase 6b")
@@ -1987,15 +2024,16 @@ def phase_eval(workdir, device):
 
     # (d) 3DPW: no silhouette metric, no rasterizer launch; the head's SVD.
     save = os.path.join(workdir, "eval_3dpw")
+    pw3d_metrics = ['PVE', 'PVE-SC', 'PVE-PA', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC',
+                    'MPJPE-PA', 'joints2D-L2E']
+    pw3d_metrics += [m + "_samples_min" for m in pw3d_metrics if m != "joints2D-L2E"]
     metrics, launches = run_path(
         "phase 6d", f"run_evaluate_torch.py --dataset 3dpw --batch_size "
         f"{EVAL_BATCH} on {len(photos)} frames",
         lambda: main(eval_argv("3dpw", pw3d, weights, save, EVAL_BATCH,
                                str(device))), expect=0,
-        gesdd=HEAD_SVD_CALLS * len(photos) // EVAL_BATCH)
-    pw3d_metrics = ['PVE', 'PVE-SC', 'PVE-PA', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC',
-                    'MPJPE-PA', 'joints2D-L2E']
-    pw3d_metrics += [m + "_samples_min" for m in pw3d_metrics if m != "joints2D-L2E"]
+        gesdd=HEAD_SVD_CALLS * len(photos) // EVAL_BATCH,
+        procrustes=procrustes_alignments(pw3d_metrics) * len(photos) // EVAL_BATCH)
     check_eval_outputs("phase 6d", metrics, pw3d_metrics, save, len(photos))
     readings["launches"][f"eval_3dpw_{len(photos)}_frames_b{EVAL_BATCH}"] = launches
     lap("phase 6d")
@@ -2055,6 +2093,8 @@ def phase_eval(workdir, device):
     # CPU, and its timings.
     readings["gesdd"] = phase_gesdd(device)
     lap("phase 6f")
+    readings["jacobi"] = phase_jacobi(device)
+    lap("phase 6g")
     return readings
 
 
@@ -2135,6 +2175,178 @@ def phase_gesdd(device):
     log(f"[phase 6f] float32 sqrt of {x.numel()} values, card vs CPU: "
         f"{off32} differ; through float64: {off64} differ")
     return {**shapes["head_8x5"], "max_abs_err": max_abs_err, "shapes": shapes}
+
+
+# The Jacobi SVD's calls: the head's depth groups (2, 3 or 5 joints) at the
+# train and predict batches, and eval's Procrustes alignment (one call of a
+# batch's matrices).
+JACOBI_SHAPES = {**{f"head_72x{g}": (72, g) for g in (2, 3, 5)},
+                 **{f"head_8x{g}": (8, g) for g in (2, 3, 5)},
+                 "procrustes_8": (8,)}
+# Bytes a matrix: F in and U, S, V out (forward); F and the three gradients
+# in and grad F out (backward); float32.
+JACOBI_BYTES = {"forward": (9 + 21) * 4, "backward": (9 + 21 + 9) * 4}
+
+
+def jacobi_forward_mismatches(F):
+    """svd3x3 on the card (the kernel) against svd3x3_plain's torch ops on
+    the card: the count of entries whose bits differ, for U, S and V (a NaN
+    equal to any NaN)."""
+    from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import svd3x3, svd3x3_plain
+    kernel, plain = svd3x3(F), svd3x3_plain(F)
+    return {name: int((~same_bits(k, p)).sum())
+            for name, k, p in zip("USV", kernel, plain)}
+
+
+def jacobi_grad_ratio(F, grads):
+    """grad F through svd3x3_jacobi_cuda and through svd3x3_plain in
+    float32 on the card, on the same F and upstream gradients of U, S and V,
+    each against float64 autograd through svd3x3_plain (the unrolled
+    derivative) on the same values: the kernel's largest error over its
+    allowance, twice the plain version's plus 1e-6 of the gradient's
+    largest entry (the gradient contract of tests/test_torch_svd3_jacobi.py).
+
+    :param F: (..., 3, 3) float32 on the card
+    :param grads: float32 gradients of U, S and V
+    :return: {"ratio", "kernel_err", "plain_err", "scale"}
+    """
+    from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import (
+        svd3x3_jacobi_cuda, svd3x3_plain)
+
+    def grad(fn, F, grads):
+        F = F.detach().clone().requires_grad_()
+        return torch.autograd.grad(fn(F), F, grads)[0]
+
+    ref = grad(svd3x3_plain, F.double(), [g.double() for g in grads])
+    before = svd3x3_jacobi_cuda.backward_launches
+    kernel = grad(svd3x3_jacobi_cuda, F, grads)
+    if svd3x3_jacobi_cuda.backward_launches != before + 1:
+        raise AssertionError("svd3_jacobi_bwd did not launch once")
+    plain = grad(svd3x3_plain, F, grads)
+    kernel_err, plain_err = (float((g.double() - ref).abs().max())
+                             for g in (kernel, plain))
+    scale = float(ref.abs().max())
+    return {"ratio": kernel_err / (2 * plain_err + 1e-6 * scale),
+            "kernel_err": kernel_err, "plain_err": plain_err, "scale": scale}
+
+
+def head_graph_ms(device, B=72, repeats=5, replays=10):
+    """G1's probe: the Jacobi head of a ResNet-18 predictor (512 features,
+    grad mode) as its two CUDA graphs at B, forward and backward replayed
+    `replays` times between CUDA events, median of `repeats`: the card's
+    time a train step's head, with the SVD on the kernels and on
+    svd3x3_plain's torch ops.
+
+    :return: {"kernels": ms, "plain": ms}
+    """
+    from hierarchicalprobabilistic3dhuman_torch.models import graphed_head as gh
+    from hierarchicalprobabilistic3dhuman_torch.models.pose_mf_shape_gaussian_net import (
+        PoseMFShapeGaussianNet)
+    from hierarchicalprobabilistic3dhuman_torch.models.weights import init_weights
+    from hierarchicalprobabilistic3dhuman_torch.ops import svd3
+    model = PoseMFShapeGaussianNet(num_resnet_layers=18)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(device)
+    feats = torch.randn(B, 512, generator=torch.Generator().manual_seed(1))
+    feats = feats.to(device).requires_grad_()
+    key = (tuple(feats.shape), feats.dtype, feats.device, True)
+    kernels, out = svd3.svd3x3, {}
+    try:
+        for name, fn in (("kernels", kernels), ("plain", svd3.svd3x3_plain)):
+            svd3.svd3x3 = fn
+            head = gh.GraphedHead()
+            for _ in range(3):      # warm-up, capture, replay
+                res = head(model, feats)
+                sum(v.sum() for v in res.values()).backward()
+            graphs = head.models[model][key]
+
+            def step(graphs=graphs):
+                graphs.forward()
+                graphs.backward()
+            out[name] = median_ms(step, repeats=repeats, inner=replays)
+    finally:
+        svd3.svd3x3 = kernels
+    return out
+
+
+def phase_jacobi(device):
+    """Phase 6g, the Jacobi SVD on the card: the svd3_jacobi kernels' build
+    report; the forward against svd3x3_plain's torch ops on the card, bit
+    for bit, on 120,000 float32 and float64 matrices (the head's regime and
+    Gaussian ones at scales 1e-3 to 1e3); at each of JACOBI_SHAPES the
+    backward held to the gradient contract (jacobi_grad_ratio, at most 1)
+    and the forward and the forward + backward timed: the wrapper's calls, median of
+    5 x 20, the card's own time (graph_ms) and the plain version's, and the
+    bound, bytes at 3.35 TB/s, which one matrix's serial chain of 24
+    rotations dwarfs; then the head's forward + backward graphs at B = 72
+    with each SVD (head_graph_ms).
+
+    :return: readings: the shapes' times and gradient ratios, the head's,
+        the mismatches, the largest ratio
+    """
+    from hierarchicalprobabilistic3dhuman_torch.ops.svd3 import (
+        LOG_PATH, build_svd3_jacobi, svd3x3_jacobi_cuda, svd3x3_plain)
+    t0 = time.perf_counter()
+    build_svd3_jacobi()
+    log(f"[phase 6g] svd3_jacobi built in {time.perf_counter() - t0:.1f} s")
+    with open(LOG_PATH) as f:
+        for line in f:
+            if "registers" in line or "spill" in line or "stack" in line:
+                log(f"[phase 6g] svd3_jacobi: {line.strip()}")
+    rng = np.random.RandomState(21)
+    F = np.concatenate([gesdd_f_plus_i(n=20000, seed=s) for s in (22, 23, 24)]
+                       + [rng.randn(20000, 3, 3) * 10.0 ** e for e in (-3, 0, 3)])
+    mismatches = {}
+    for dtype in (torch.float32, torch.float64):
+        mismatches[str(dtype)] = jacobi_forward_mismatches(
+            torch.as_tensor(F, dtype=dtype, device=device))
+    log(f"[phase 6g] svd3x3 on {len(F)} matrices, the kernel vs the torch ops "
+        f"on the card: entries whose bits differ {mismatches}")
+    if any(n for m in mismatches.values() for n in m.values()):
+        raise AssertionError("[phase 6g] the svd3_jacobi forward differs from "
+                             "its plain version's bits")
+    shapes = {}
+    for name, shape in JACOBI_SHAPES.items():
+        n = int(np.prod(shape))
+        Fd = torch.from_numpy(gesdd_f_plus_i(n=n)).reshape(shape + (3, 3)).to(device)
+        Fg = Fd.clone().requires_grad_()
+        grads = [torch.randn(shape + s, device=device) for s in ((3, 3), (3,), (3, 3))]
+        contract = jacobi_grad_ratio(Fd, grads)
+        log(f"[phase 6g] svd3_jacobi_bwd {name}: grad F's largest error "
+            f"{contract['kernel_err']:.3e} (float32 torch ops {contract['plain_err']:.3e},"
+            f" largest entry {contract['scale']:.3e}): {contract['ratio']:.3f} of "
+            f"the contract's allowance")
+        if not contract["ratio"] <= 1.0:
+            raise AssertionError(f"[phase 6g] svd3_jacobi_bwd at {name} breaks the "
+                                 f"gradient contract: {contract}")
+
+        def both(fn, Fg=Fg, grads=grads):
+            with torch.autograd.set_multithreading_enabled(False):
+                torch.autograd.grad(fn(Fg), Fg, grads)
+
+        ms = median_ms(lambda: svd3x3_jacobi_cuda(Fd), inner=20)
+        device_ms = graph_ms(lambda: svd3x3_jacobi_cuda(Fd))
+        both_ms = graph_ms(lambda: both(svd3x3_jacobi_cuda))
+        plain_ms = median_ms(lambda: svd3x3_plain(Fd), repeats=3)
+        plain_both_ms = median_ms(lambda: both(svd3x3_plain), repeats=3)
+        bound_ms = {k: n * b / PEAK_BYTES_PER_S * 1e3 for k, b in JACOBI_BYTES.items()}
+        log(f"[phase 6g] svd3_jacobi {name}, {n} matrices: forward {ms:.4f} ms "
+            f"a call, {device_ms:.4f} ms on the card (graph replay), forward + "
+            f"backward {both_ms:.4f} ms on the card; bound {bound_ms['forward']:.7f}"
+            f" / {bound_ms['backward']:.7f} ms (bytes); plain version {plain_ms:.3f}"
+            f" / {plain_both_ms:.3f} ms a call")
+        shapes[name] = {"grad_ratio": contract["ratio"],
+                        "ms": ms, "device_ms": device_ms, "device_ms_fwd_bwd": both_ms,
+                        "plain_ms": plain_ms, "plain_ms_fwd_bwd": plain_both_ms,
+                        "bound_ms": bound_ms["forward"],
+                        "bound_ms_bwd": bound_ms["backward"], "bound_by": "bytes"}
+    head = head_graph_ms(device)
+    log(f"[phase 6g] the Jacobi head's forward + backward graphs at B = 72: "
+        f"{head['kernels']:.3f} ms on the card with the kernels, "
+        f"{head['plain']:.3f} ms with svd3x3_plain's torch ops ({card_line()})")
+    return {**shapes["head_72x5"], "shapes": shapes, "head_graph_ms": head,
+            "mismatches": mismatches,
+            "grad_ratio_max": max(v["grad_ratio"] for v in shapes.values())}
 
 
 def write_ssp3d_folder(root, images, seed=0):
@@ -2227,6 +2439,16 @@ TRAIN_PROXY_SHARE = 0.99
 TRAIN_STEPS_A_EPOCH = 6          # 288 / 72 train + 144 / 72 val poses
 TRAIN_METRICS = ['PVE', 'PVE-SC', 'PVE-T-SC', 'MPJPE', 'MPJPE-SC', 'MPJPE-PA',
                  'joints2D-L2E']
+
+
+def trained(steps):
+    """run_path's Jacobi counts for `steps` train and val steps of the
+    Jacobi head on the card: a head call and the metric sums' Procrustes
+    alignments a step, the train key's backward from the host."""
+    return {"head": steps, "procrustes": procrustes_alignments(TRAIN_METRICS) * steps,
+            "backward": TRAIN_SVD_BACKWARD}
+
+
 CKPT_KEYS = {"epoch", "best_epoch", "best_epoch_val_metrics", "model_state_dict",
              "best_model_state_dict", "optimiser_state_dict"}
 
@@ -2503,12 +2725,12 @@ def phase_train(workdir, device):
         "phase 7b", "run_train_torch.py -O LOSS.STAGE_CHANGE_EPOCH 1 "
         "--num_epochs 2 (B=72, 256^2, stage 1 then 2)",
         lambda: train_main(["-E", exp, "-O", "LOSS.STAGE_CHANGE_EPOCH", "1",
-                            "--num_epochs", "2"]), expect=steps)
+                            "--num_epochs", "2"]), expect=steps, **trained(steps))
     check_experiment("phase 7b", exp, epochs=2)
     _, readings["resume_launches"] = run_path(
         "phase 7b", "run_train_torch.py -R 0 --num_epochs 2 (epoch 1 again)",
         lambda: train_main(["-E", exp, "-R", "0", "--num_epochs", "2"]),
-        expect=TRAIN_STEPS_A_EPOCH)
+        expect=TRAIN_STEPS_A_EPOCH, **trained(TRAIN_STEPS_A_EPOCH))
     check_experiment("phase 7b", exp, epochs=2)
     lap("phase 7b")
 
@@ -2727,7 +2949,8 @@ def phase_resnet50(workdir, device):
             "phase 8a", "run_train_torch.py -O MODEL.NUM_RESNET_LAYERS 50 "
             "LOSS.STAGE_CHANGE_EPOCH 1 --num_epochs 2 (B=72, 256^2)",
             lambda: train_main(["-E", exp, "-O", *RESNET50_OPTS,
-                                "--num_epochs", "2"]), expect=steps)
+                                "--num_epochs", "2"]), expect=steps,
+            **trained(steps))
     check_experiment("phase 8a", exp, epochs=2)
     (recorder,) = made
     scene = recorder.scene()
@@ -2742,7 +2965,7 @@ def phase_resnet50(workdir, device):
     _, readings["launches"]["train_resnet50_resume_jax_layout"] = run_path(
         "phase 8b", "run_train_torch.py -R 1 --num_epochs 3 from the JAX layout",
         lambda: train_main(["-E", jax_exp, "-R", "1", "--num_epochs", "3"]),
-        expect=TRAIN_STEPS_A_EPOCH)
+        expect=TRAIN_STEPS_A_EPOCH, **trained(TRAIN_STEPS_A_EPOCH))
     cfg = experiment_cfg(exp)
     host_batch = train_batch(cfg.TRAIN.BATCH_SIZE, cfg.DATA.PROXY_REP_SIZE, seed=4)
     ref_ckpt = checkpoint_path(os.path.join(exp, "saved_models"), 1)
@@ -2764,7 +2987,7 @@ def phase_resnet50(workdir, device):
                                   "--cropped_images", "--pose_shape_cfg", cfg_path,
                                   "--pose_shape_weights", path, "--svd_impl",
                                   "jacobi", "--device", "cuda"]),
-            expect=len(DEMO_PHOTOS))
+            expect=len(DEMO_PHOTOS), head=len(DEMO_PHOTOS))
         check_results("phase 8c", results, DEMO_PHOTOS)
         eval_save = os.path.join(workdir, f"eval_resnet50_{fmt}")
         metrics, readings["launches"][f"eval_resnet50_{fmt}"] = run_path(
@@ -2773,7 +2996,10 @@ def phase_resnet50(workdir, device):
             lambda: eval_main(eval_argv("ssp3d", ssp3d, path, eval_save, EVAL_BATCH,
                                         "cuda", "--pose_shape_cfg", cfg_path,
                                         "--svd_impl", "jacobi")),
-            expect=2 * len(eval_photos()) // EVAL_BATCH)
+            expect=2 * len(eval_photos()) // EVAL_BATCH,
+            head=len(eval_photos()) // EVAL_BATCH,
+            procrustes=procrustes_alignments(SSP3D_METRICS) * len(eval_photos())
+            // EVAL_BATCH)
         check_eval_outputs("phase 8c", metrics, SSP3D_METRICS, eval_save,
                            len(eval_photos()))
         outputs[fmt] = (results, metrics, {f: np.load(os.path.join(
@@ -3238,7 +3464,7 @@ def phase_native(workdir, device):
             "--num_epochs 2 --native_data_dir (B=72, 256^2)",
             lambda: train_main(["-E", exp, "-O", "LOSS.STAGE_CHANGE_EPOCH", "1",
                                 "--num_epochs", "2", "--native_data_dir", stores]),
-            expect=2 * TRAIN_STEPS_A_EPOCH)
+            expect=2 * TRAIN_STEPS_A_EPOCH, **trained(2 * TRAIN_STEPS_A_EPOCH))
     check_experiment("phase 9b", exp, epochs=2)
     (recorder,) = made
     texels = tuple(recorder.last[2].shape)
@@ -3941,7 +4167,8 @@ def phase_parallel(workdir, device):
                     "phase 10a", f"run_train_torch.py {' '.join(argv + run_flags)} "
                     f"--num_epochs 2 ({what})",
                     lambda: train_main(["-E", exp, *argv, "--num_epochs", "2",
-                                        *run_flags]), expect=expect)
+                                        *run_flags]), expect=expect,
+                    **trained(expect))
             readings["launches"][f"train_{name}_{what.replace(' ', '_')}"] = launches
     same_experiment("phase 10a", exps["plain"], exps["world1"], epochs=2)
 
@@ -3964,7 +4191,8 @@ def phase_parallel(workdir, device):
             metrics[name], launches = run_path(
                 "phase 10a", f"run_evaluate_torch.py --dataset ssp3d --batch_size "
                 f"{EVAL_BATCH} ({name})", lambda: eval_cli.run_evaluate(args),
-                expect=4, gesdd=2 * HEAD_SVD_CALLS)
+                expect=4, gesdd=2 * HEAD_SVD_CALLS,
+                procrustes=2 * procrustes_alignments(SSP3D_METRICS))
         readings["launches"][f"eval_{name}_16_frames"] = launches
     files = sorted(os.listdir(os.path.join(workdir, "par_eval_plain")))
     differ = [k for k in metrics["plain"] if metrics["plain"][k] != metrics["world1"][k]]
@@ -4267,10 +4495,12 @@ def golden_small(device):
         (card32, ms), launches = run_path(
             "phase 11a", f"{GOLDEN_STEPS} + {GOLDEN_STEPS} steps at B="
             f"{GOLDEN_BATCH}, {GOLDEN_SMALL['img_wh']}^2 on the card",
-            lambda: trajectory(device, recorder=recorder), expect=2 * GOLDEN_STEPS)
+            lambda: trajectory(device, recorder=recorder), expect=2 * GOLDEN_STEPS,
+            **trained(2 * GOLDEN_STEPS))
         (card64, _), _ = run_path(
             "phase 11a", "the same with a float64 predictor and Adam",
-            lambda: trajectory(device, float64=True), expect=2 * GOLDEN_STEPS)
+            lambda: trajectory(device, float64=True), expect=2 * GOLDEN_STEPS,
+            **trained(2 * GOLDEN_STEPS))
     log(f"[phase 11a] CPU trajectory {cpu_s:.1f} s; card steps "
         f"{[round(t, 1) for t in ms]} ms")
     for k, (a, b) in enumerate(zip(card32["steps"], cpu32["steps"])):
@@ -4335,7 +4565,7 @@ def golden_full(device):
                 "phase 11b", f"{GOLDEN_STEPS} + {GOLDEN_STEPS} steps at B={B}, "
                 f"{cfg.DATA.PROXY_REP_SIZE}^2, {name}",
                 lambda: golden_trajectory(device, cfg, batches, **kwargs),
-                expect=2 * GOLDEN_STEPS)
+                expect=2 * GOLDEN_STEPS, **trained(2 * GOLDEN_STEPS))
         stage_ms = [statistics.median(ms[:GOLDEN_STEPS]),
                     statistics.median(ms[GOLDEN_STEPS:])]
         readings["launches"][f"golden_{name.replace(' ', '_')}"] = launches
@@ -4530,6 +4760,19 @@ def main():
         "library_ms": None,
         "library": "none: torch.linalg.svd gives other column signs",
         "launches_by_path": {k: v["svd3_gesdd"] for k, v in path_launches.items()},
+    }, {
+        "name": "svd3x3",
+        "kernel": "svd3_jacobi, svd3_jacobi_bwd",
+        "route": "cuda",
+        "source": "hierarchicalprobabilistic3dhuman_torch/csrc/svd3_jacobi.cu",
+        "replaces": None,
+        **evaluation["jacobi"],
+        "library_ms": None,
+        "library": "none: torch.linalg.svd gives other signs and no unrolled "
+                   "gradient",
+        "launches_by_path": {k: {"forward": v["svd3_jacobi"],
+                                 "backward": v["svd3_jacobi_bwd"]}
+                             for k, v in path_launches.items()},
     }]
     log(f"[phase 4] predict_ms_per_image {timing['predict_ms']}")
     for tag, readings in (("phase 5", batched), ("phase 6", evaluation),

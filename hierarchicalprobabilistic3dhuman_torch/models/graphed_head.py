@@ -1,10 +1,9 @@
 """The Jacobi pose head replayed as CUDA graphs.
 
-`PoseMFShapeGaussianNet._head` with the Jacobi SVD is some 9,100 small
-kernels a forward at B = 72 (eight depth groups of 8 sweeps x 3 rotations,
-each a few dot products, an atan2, a cos, a sin and two clone-and-scatter
-column updates; the per-group MLPs; the concatenations, properization and
-stacks), and its autograd mirror at least as many. The card does a few
+`PoseMFShapeGaussianNet._head` with the Jacobi SVD is many small kernels a
+forward at B = 72 (eight depth groups, each its MLP, one launch of the
+svd3_jacobi kernel, properization and the mode; the concatenations and
+stacks), and its autograd mirror as many again. The card does a few
 microseconds of work per kernel; the host's launches are the cost. The head
 draws nothing, syncs nothing and has fixed shapes for a batch, so its
 launches are captured once and replayed: a forward graph (feats -> every

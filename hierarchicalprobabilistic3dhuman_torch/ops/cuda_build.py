@@ -3,9 +3,9 @@
 Each source is compiled for sm_90a into its own shared library with a plain
 C interface under build/hp3d_torch_kernels/, with nvcc's register and
 shared-memory report in a log beside it, and loaded with ctypes by the
-module that launches it: ops/rasterizer_cuda.py (`librasterize.so`) and
-ops/lapack_svd3.py (`libsvd3_gesdd.so`), so a path loads only the kernels it
-runs.
+module that launches it: ops/rasterizer_cuda.py (`librasterize.so`),
+ops/lapack_svd3.py (`libsvd3_gesdd.so`) and ops/svd3.py
+(`libsvd3_jacobi.so`), so a path loads only the kernels it runs.
 """
 
 import os

@@ -13,11 +13,28 @@ The LAPACK-sign modes serve checkpoints trained on the reference's
 torch.svd signs: `proper_svd3x3_gesdd` runs ops/lapack_svd3.py on the
 tensors' own device, `proper_svd3x3_lapack` is the oracle the JAX package
 holds itself to, numpy's sgesdd on a host copy, on every device.
+
+The Jacobi SVD takes two forms, chosen by the tensor's device; neither
+falls back to the other. `svd3x3_plain` (CPU tensors): the torch ops, and
+autograd through them. `svd3x3_jacobi_cuda` (CUDA tensors, float32 or
+float64): the kernels of csrc/svd3_jacobi.cu, one launch a call forward and
+one backward, on the current stream with no host sync (so the pose head's
+CUDA graphs capture them). The forward gives the torch ops' bits on the
+card; the backward is the exact derivative of the same unrolled algorithm,
+the one autograd takes through the torch ops, not the closed-form SVD
+gradient. At most MAX_SWEEPS sweeps on the card.
 """
+
+import ctypes
+import os
+from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
+from hierarchicalprobabilistic3dhuman_torch.ops.cuda_build import (
+    BUILD_DIR, CSRC_DIR, build_library)
 from hierarchicalprobabilistic3dhuman_torch.ops.lapack_svd3 import svd3x3_gesdd
 
 _TINY = 1e-30
@@ -51,7 +68,23 @@ def _norm(v):
 
 
 def svd3x3(F, n_sweeps=8):
-    """SVD of batched 3x3 matrices, F = U @ diag(S) @ V^T.
+    """SVD of batched 3x3 matrices by one-sided Jacobi, F = U @ diag(S) @
+    V^T, differentiable: CUDA tensors take the kernels
+    (svd3x3_jacobi_cuda), CPU tensors the torch ops (svd3x3_plain).
+
+    :param F: (..., 3, 3)
+    :return: U (..., 3, 3), S (..., 3) descending, V (..., 3, 3)
+    """
+    if F.device.type == "cuda":
+        return svd3x3_jacobi_cuda(F, n_sweeps)
+    if F.device.type != "cpu":
+        raise ValueError(f"no svd3x3 for device {F.device}")
+    return svd3x3_plain(F, n_sweeps)
+
+
+def svd3x3_plain(F, n_sweeps=8):
+    """svd3x3 as torch ops: what CPU tensors take, and the kernels' plain
+    version on the card.
 
     :param F: (..., 3, 3)
     :return: U (..., 3, 3), S (..., 3) descending, V (..., 3, 3)
@@ -101,6 +134,127 @@ def svd3x3(F, n_sweeps=8):
                        < 0.0, -1.0, 1.0)
     U = torch.stack([u0, u1, cross01 * sign], dim=-1)
     return U, S, V
+
+
+SRC_PATH = os.path.join(CSRC_DIR, "svd3_jacobi.cu")
+LIB_PATH = os.path.join(BUILD_DIR, "libsvd3_jacobi.so")
+LOG_PATH = os.path.join(BUILD_DIR, "libsvd3_jacobi.log")
+# The most sweeps the backward kernel's local records hold (the .cu's
+# kMaxSweeps).
+MAX_SWEEPS = 8
+
+
+def build_svd3_jacobi():
+    """Compile csrc/svd3_jacobi.cu into build/hp3d_torch_kernels/
+    libsvd3_jacobi.so (skipped while the library is newer than the source),
+    with nvcc's register report in libsvd3_jacobi.log beside it.
+
+    :return: the library path
+    """
+    return build_library(SRC_PATH, LIB_PATH, LOG_PATH)
+
+
+@lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(build_svd3_jacobi())
+    lib.hp3d_svd3_jacobi.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.hp3d_svd3_jacobi.restype = ctypes.c_int
+    lib.hp3d_svd3_jacobi_bwd.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.hp3d_svd3_jacobi_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name, A, *pointers, n_sweeps):
+    """One launch of kernel `name` over A's matrices on A's card's current
+    stream; raises on a refused launch."""
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = getattr(_library(), name)(*pointers, A.shape[0], n_sweeps,
+                                        int(A.dtype == torch.float64), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _pointer(grad, like):
+    """A gradient's address as the backward kernel reads it, None where
+    autograd gave none; the contiguous tensor that holds it."""
+    if grad is None:
+        return None, None
+    grad = grad.reshape(like).contiguous()
+    return grad.data_ptr(), grad
+
+
+class _JacobiKernel(torch.autograd.Function):
+    """svd3_jacobi forward, svd3_jacobi_bwd backward, on (N, 3, 3)."""
+
+    @staticmethod
+    def forward(ctx, A, n_sweeps):
+        N = A.shape[0]
+        U, V = torch.empty_like(A), torch.empty_like(A)
+        S = A.new_empty((N, 3))
+        if N:                      # a launch of no threads fails
+            _launch("hp3d_svd3_jacobi", A, A.data_ptr(), U.data_ptr(),
+                    S.data_ptr(), V.data_ptr(), n_sweeps=n_sweeps)
+            svd3x3_jacobi_cuda.launches += 1
+        ctx.save_for_backward(A)
+        ctx.n_sweeps = n_sweeps
+        ctx.set_materialize_grads(False)
+        return U, S, V
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gU, gS, gV):
+        (A,) = ctx.saved_tensors
+        N = A.shape[0]
+        gF = torch.empty_like(A)
+        if N:
+            gu, gU = _pointer(gU, A.shape)
+            gs, gS = _pointer(gS, (N, 3))
+            gv, gV = _pointer(gV, A.shape)
+            _launch("hp3d_svd3_jacobi_bwd", A, A.data_ptr(), gu, gs, gv,
+                    gF.data_ptr(), n_sweeps=ctx.n_sweeps)
+            svd3x3_jacobi_cuda.backward_launches += 1
+        return gF, None
+
+
+def svd3x3_jacobi_cuda(F, n_sweeps=8):
+    """Launch the svd3_jacobi kernel: svd3x3_plain's U, S, V, bit for bit as
+    its torch ops give them on the card, in one launch on the current stream
+    with no host sync; under autograd the backward is one launch of
+    svd3_jacobi_bwd. Counts: `.launches`, `.backward_launches` (host
+    launches; a CUDA graph's replays are not counted).
+
+    :param F: (..., 3, 3) float32 or float64 on the card
+    :param n_sweeps: 0 to MAX_SWEEPS
+    :return: U (..., 3, 3), S (..., 3) descending, V (..., 3, 3)
+    """
+    if F.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"svd3x3_jacobi_cuda: need float32 or float64, got "
+                         f"{F.dtype}")
+    if F.dim() < 2 or tuple(F.shape[-2:]) != (3, 3):
+        raise ValueError(f"svd3x3_jacobi_cuda: need shape (..., 3, 3), got "
+                         f"{tuple(F.shape)}")
+    if (not isinstance(n_sweeps, int) or isinstance(n_sweeps, bool)
+            or not 0 <= n_sweeps <= MAX_SWEEPS):
+        raise ValueError(f"svd3x3_jacobi_cuda: n_sweeps must be an int in "
+                         f"[0, {MAX_SWEEPS}], got {n_sweeps!r}")
+    if not F.is_cuda:
+        raise ValueError(f"svd3x3_jacobi_cuda: need a CUDA tensor, got one on "
+                         f"{F.device}")
+    batch = F.shape[:-2]
+    A = F.reshape(-1, 3, 3).contiguous()
+    if A.shape[0] >= 2 ** 31:
+        raise ValueError(f"svd3x3_jacobi_cuda: {A.shape[0]} matrices, at most "
+                         f"2**31 - 1")
+    U, S, V = _JacobiKernel.apply(A, n_sweeps)
+    return (U.reshape(batch + (3, 3)), S.reshape(batch + (3,)),
+            V.reshape(batch + (3, 3)))
+
+
+svd3x3_jacobi_cuda.launches = 0
+svd3x3_jacobi_cuda.backward_launches = 0
 
 
 def det3x3(M):
